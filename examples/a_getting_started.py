@@ -1,8 +1,8 @@
 """Getting started with pytv4d_tpu — the reference's
-``examples/a_getting_started.ipynb`` flow, TPU-native.
+``examples/a_getting_started.ipynb`` flow, on JAX.
 
 Covers: TV values + subgradients, GD vs Chambolle-Pock vs ADMM denoising of
-the cameraman image, and the operator forms.  Runs on TPU, GPU or CPU.
+the cameraman image, and the operator forms.  Runs on a GPU or the CPU.
 """
 
 # Allow running from a repo checkout without installation.

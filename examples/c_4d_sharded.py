@@ -2,7 +2,7 @@
 workload the reference points at but cannot run (its GPU path is single-device
 and round-trips PCIe per call; SURVEY.md sections 2.5, 3.2).
 
-Runs on any device count: real TPU slices, or a virtual CPU mesh via
+Runs on any device count: several GPUs, or a virtual CPU mesh via
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 """
 
@@ -40,7 +40,7 @@ noisy = jnp.asarray(rng.random((Nz, M, N, N)), jnp.float32)
 # Option 1 — GSPMD: shard the inputs, jit the plain solver; XLA inserts the
 # halo collectives automatically.
 noisy_sharded = shard_volume(noisy, mesh)
-res = chambolle_pock(noisy_sharded, n_iter=50, reg=1.0, cfg=cfg, fused=False)
+res = chambolle_pock(noisy_sharded, n_iter=50, reg=1.0, cfg=cfg)
 print(f"GSPMD path:     final loss {float(res.loss[-1]):.2f}")
 
 # Option 2 — explicit shard_map halo exchange (parallel/halo.py): one

@@ -97,12 +97,9 @@ print(f"cone-beam: {len(angles_c)} views, FDK warm start, "
 
 # ---- round 5: the gather-free cone stack ---------------------------------
 # Everything above also runs WITHOUT a single gather in the compiled
-# program (the production path on TPU, where gather projectors crash
-# workers): spectral cone data, rebinning P-FDK (`method='spectral'` —
-# auto on TPU), ordered-subsets SART per geometry, and an
-# accuracy-certification tier (`order=2`: z-DFT offset-line evaluation,
-# measured MORE accurate than the gather cone against analytic line
-# integrals at every geometry — docs/performance.md).
+# program (the default on accelerators): spectral cone data, rebinning
+# P-FDK (`method='spectral'`), ordered-subsets SART per geometry, and an
+# accuracy-certification tier (`order=2`: z-DFT offset-line evaluation).
 from pytv4d_tpu.models.ct import sart
 from pytv4d_tpu.models.ct_spectral import radon_cone_spectral
 
@@ -113,9 +110,7 @@ rec_fdk_s = fdk(sino_cs, np.asarray(angles_c), geom_c, truth3d.shape,
 res_sart = sart(sino_cs, np.asarray(angles_c), truth3d.shape, n_iter=5,
                 n_subsets=4, geom=geom_c, method="spectral")
 # at this toy scale the wide-cone FDK is artifact-heavy (corr ~0.5 for
-# BOTH methods) so SART makes the better warm start; at production
-# scale FDK-warm was measured 4.4x better than cold
-# (docs/performance.md)
+# BOTH methods) so SART makes the better warm start
 res_cs = cp_reconstruct(sino_cs, np.asarray(angles_c), truth3d.shape,
                         n_iter=60, reg=0.01, geom=geom_c,
                         x_init=res_sart.x, method="spectral")
@@ -126,11 +121,10 @@ print(f"gather-free cone: SART warm start (residual "
       f"corr(truth) = {corr_cs:.3f}")
 
 # ---- round 3: the gather-free spectral projector + certified stopping ----
-# On TPU, `method='auto'` picks the spectral projector (FFT + matmuls, no
-# gather in the compiled program) — the production path at scales where the
-# bilinear gather projector crashed TPU workers ((16,4,512,512) x 96
-# angles).  Here we request it explicitly (this example also runs on CPU)
-# and stop on the CERTIFIED duality gap instead of a fixed count.
+# On accelerators `method='auto'` picks the spectral projector (FFT +
+# matmuls, no gather in the compiled program).  Here we request it
+# explicitly (this example also runs on CPU) and stop on the CERTIFIED
+# duality gap instead of a fixed count.
 import functools
 
 from pytv4d_tpu.models.ct import make_projector

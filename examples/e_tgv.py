@@ -7,8 +7,6 @@ produces the classic staircase artifact.  TGV-2 (Bredies, Kunisch & Pock
 
 Two experiments (both assert TGV beats TV in RMSE):
 1. Denoising a noisy linear ramp: ``tgv_denoise`` vs Chambolle-Pock TV.
-   On TPU the 2D mode dispatches to the slice-resident Pallas kernel
-   (kernels/tgv_resident.py) — the whole solve in one kernel launch.
 2. CT reconstruction of a ramp-filled disk from 16 noisy projection
    angles: ``models.ct.tgv_reconstruct`` vs ``cp_reconstruct``.
 """

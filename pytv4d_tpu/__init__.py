@@ -1,15 +1,15 @@
-"""pytv4d_tpu — a TPU-native total-variation framework for 2D/3D/4D imaging.
+"""pytv4d_tpu — a JAX total-variation framework for 2D/3D/4D imaging.
 
-A ground-up JAX/XLA/Pallas re-design with the full capability surface of
+A ground-up JAX/XLA re-design with the full capability surface of
 eboigne/PyTV-4D v1.1.2 (reference layer map in SURVEY.md): the four TV
 discretization schemes (upwind / downwind / central / hybrid), the discrete
 gradient D and its exact adjoint D_T, the L2,1 norm, TV value + subgradient,
 first-class jit-compiled solvers (subgradient descent, Chambolle-Pock, ADMM),
-fused Pallas TPU kernels, and (z, t) device-mesh sharding with halo exchange.
+and (z, t) device-mesh sharding with halo exchange.
 
 Drop-in compatibility: ``tv_CPU`` / ``tv_operators_CPU`` (numpy float64,
 bit-exact vs the reference CPU path) and ``tv_GPU`` / ``tv_operators_GPU``
-(aliases of the TPU modules) mirror ``pytv``'s module layout
+(jit-compiled accelerator modules) mirror ``pytv``'s module layout
 (``pytv/__init__.py:43-63``), so ``import pytv4d_tpu as pytv`` works for
 reference call sites.
 """
@@ -42,15 +42,12 @@ from .ops.api import (
 from .ops.tv import make_tv
 
 # Reference-layout compat modules (``pytv.tv_CPU`` etc.).
-from . import tests, tv_CPU, tv_operators_CPU, tv_operators_TPU, tv_TPU
-
-tv_GPU = tv_TPU
-tv_operators_GPU = tv_operators_TPU
+from . import tests, tv_CPU, tv_GPU, tv_operators_CPU, tv_operators_GPU
 
 # utils / tests exported at package level like the reference
 # (``pytv/__init__.py:59-60``).
 from .utils.images import cameraman
-from .testing import run_CPU_tests, run_GPU_tests, run_TPU_tests
+from .testing import run_CPU_tests, run_GPU_tests
 
-# Solvers, models, parallel, kernels.
-from . import solvers, models, parallel, kernels
+# Solvers, models, parallel.
+from . import solvers, models, parallel

@@ -15,8 +15,8 @@ convention, ``pytv/tv_operators_CPU.py:115-127`` and the math notebook's
 "extended by 1 on both ends ... r_{N-1}=0, r_{-1}=0").
 
 Deriving everything from this table guarantees D/D_T adjointness *by construction*
-(D_T is the transposed scatter of the same table) and makes the Pallas kernels,
-the sharded halo path, and the plain jnp path consume identical semantics.
+(D_T is the transposed scatter of the same table) and makes the sharded halo
+path and the plain jnp path consume identical semantics.
 
 Channel order, per-axis sqrt weights, and global normalization match the reference
 exactly (parity targets in SURVEY.md section 2.2/2.3):

@@ -182,8 +182,8 @@ def denoise_tv_chambolle(
     ``eps`` (scikit-image's stopping tolerance): when given, the solve runs
     in chunks and stops once the relative objective change over a chunk
     falls below ``eps`` (or at ``max_num_iter``).  Default ``None`` runs
-    exactly ``max_num_iter`` iterations — one compiled scan, fastest on
-    TPU (scikit-image's own default is ``eps=2e-4``).
+    exactly ``max_num_iter`` iterations — one compiled scan, the fastest
+    form on an accelerator (scikit-image's own default is ``eps=2e-4``).
 
     ``channel_axis`` (scikit-image convention) marks an axis of channels:
     2D multichannel ``(H, W, C)``-style or 3D z-stack multichannel.  By

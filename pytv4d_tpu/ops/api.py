@@ -9,8 +9,6 @@ and data stays device-resident.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 
 from . import operators as _ops
@@ -25,52 +23,11 @@ compute_L21_norm = jax.jit(_ops.compute_L21_norm, static_argnames=("return_array
 _tv_jnp = jax.jit(_tv.tv_and_subgrad, static_argnames=_STATIC_TV)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("scheme", "reg_z_over_reg", "reg_time",
-                     "factor_reg_static", "norm_type", "huber_delta",
-                     "return_grad_norms", "interpret"),
-)
-def _tv_fused(img, mask_static, weight_time, scheme, reg_z_over_reg,
-              reg_time, factor_reg_static, norm_type, huber_delta,
-              return_grad_norms, interpret):
-    from ..core.config import TVConfig
-    from ..kernels.dispatch import t_plane_multiplier
-    from ..kernels.fused import tv_and_subgrad_fused
-
-    cfg = TVConfig(scheme=scheme, reg_z_over_reg=reg_z_over_reg,
-                   reg_time=reg_time, factor_reg_static=factor_reg_static,
-                   norm=norm_type, huber_delta=huber_delta)
-    tmul = t_plane_multiplier(tuple(img.shape), cfg, mask_static,
-                              weight_time, dtype=img.dtype)
-    return tv_and_subgrad_fused(img, cfg, interpret=interpret,
-                                return_grad_norms=return_grad_norms,
-                                tmul=tmul)
-
-
 def tv_and_subgrad(img, scheme="hybrid", mask=None, reg_z_over_reg=1.0,
                    reg_time=0.0, mask_static=None, factor_reg_static=0.0,
                    weight_time=None, return_grad_norms=False,
                    norm_type="iso", huber_delta=1.0):
-    """tv + subgradient, auto-dispatched to the fused Pallas kernels on TPU
-    when the instance supports them (iso, aniso or huber norm, plane-shaped
-    static masks / weight_time, plane fits VMEM), else the jnp path —
-    numerics identical either way."""
-    from ..core.config import TVConfig
-    from ..kernels.dispatch import can_fuse, default_interpret
-
-    cfg = TVConfig(scheme=scheme, reg_z_over_reg=reg_z_over_reg,
-                   reg_time=reg_time, factor_reg_static=factor_reg_static,
-                   norm=norm_type, huber_delta=huber_delta)
-    if (mask is None and hasattr(img, "shape")
-            and len(img.shape) == 4 and jax.default_backend() == "tpu"
-            and can_fuse(tuple(img.shape), cfg, mask_static=mask_static,
-                         dtype=jax.numpy.asarray(img).dtype.name,
-                         weight_time=weight_time, for_gd=True)):
-        return _tv_fused(jax.numpy.asarray(img), mask_static, weight_time,
-                         scheme, reg_z_over_reg, reg_time,
-                         factor_reg_static, norm_type, huber_delta,
-                         return_grad_norms, default_interpret())
+    """tv + subgradient, jit-compiled (``ops.tv.tv_and_subgrad``)."""
     return _tv_jnp(img, scheme=scheme, mask=mask,
                    reg_z_over_reg=reg_z_over_reg, reg_time=reg_time,
                    mask_static=mask_static,

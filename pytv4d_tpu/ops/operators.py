@@ -5,7 +5,7 @@ One implementation, generated from the declarative stencil tables in
 functions (``pytv/tv_operators_CPU.py:45-658``, ``pytv/tv_operators_GPU.py``).
 The array module is pluggable (``xp`` = ``jax.numpy`` or ``numpy``):
 
-- ``xp=jax.numpy`` (default): jit-able, differentiable, TPU-shardable.  All
+- ``xp=jax.numpy`` (default): jit-able, differentiable, shardable over a device mesh.  All
   code is pads/slices/elementwise only — no scatter ops — so XLA's SPMD
   partitioner can split it over a device mesh with automatic halo exchange.
 - ``xp=numpy``: bit-exact float64 reference-parity path (used by the compat

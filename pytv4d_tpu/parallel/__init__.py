@@ -1,9 +1,4 @@
-from . import fused_halo, halo, mesh, multihost, tgv_sharded
-from .fused_halo import (
-    internal_d_sharding,
-    make_sharded_cp_solver_fused,
-    make_sharded_gd_solver_fused,
-)
+from . import halo, mesh, multihost, tgv_sharded
 from .halo import (
     make_sharded_cp_solver,
     sharded_cp_step,
@@ -11,7 +6,7 @@ from .halo import (
     sharded_D_T,
     sharded_tv_and_subgrad,
 )
-from .tgv_sharded import make_sharded_tgv_stream_solver, tgv_denoise_sharded
+from .tgv_sharded import tgv_denoise_sharded
 from .mesh import (
     T_AXIS,
     Z_AXIS,

@@ -4,7 +4,7 @@ device mesh.
 The domain-decomposition analog of ring attention for stencils (SURVEY.md
 section 5 "long-context"): each device owns a contiguous block of z-slices
 (and optionally time frames), exchanges ONE boundary plane per direction per
-operator application via ``lax.ppermute`` over ICI, and reduces norms/losses
+operator application via ``lax.ppermute``, and reduces norms/losses
 with ``psum``.  Communication volume per CP iteration is 2 planes of
 ``(M, N, N)`` per z-neighbor pair — O(1/Nz_local) of the compute, so weak
 scaling is near-linear.
@@ -16,10 +16,9 @@ are zero globally are masked on the owning shard — so the adjointness oracle
 solver iterates are bitwise-comparable (up to reduction order) with the
 unsharded solver.
 
-Everything here is also the reference for what the fused Pallas kernels must
-do per-shard; XLA's GSPMD partitioner produces the same collectives
-automatically for the plain jnp ops (``parallel.mesh``), this module exists
-for explicit control and for wiring kernels in later.
+XLA's GSPMD partitioner produces the same collectives automatically for the
+plain jnp ops (``parallel.mesh``); this module exists for explicit control
+of where the exchanges happen.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ blueprint: the ``(Nz, M, N, N)`` order is chosen "since the CT operations can
 be decomposed easily along z" (``README.md:235``) — so the canonical mesh here
 is ``('z', 't')`` with the volume sharded over its two leading axes.  All TV
 stencils are pads/slices, so XLA's SPMD partitioner inserts the one-pixel halo
-exchanges (``collective-permute`` over ICI) automatically when the jitted ops
+exchanges (``collective-permute``) automatically when the jitted ops
 run on sharded inputs; ``parallel.halo`` provides the explicit ``shard_map``
 equivalent for hand-scheduled overlap.
 """

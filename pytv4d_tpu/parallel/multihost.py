@@ -2,15 +2,16 @@
 "Distributed communication backend": the reference has none; the jax analog of
 NCCL/MPI bootstrap is ``jax.distributed.initialize`` + a global device mesh).
 
-Usage on each host of a pod slice / multi-host CPU ring:
+Usage on each host of a multi-host GPU or CPU cluster:
 
     from pytv4d_tpu.parallel import multihost
-    multihost.initialize()                       # env-driven (TPU pods: no-op args)
+    multihost.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = multihost.global_mesh(t=2)            # (z, t) over ALL hosts' devices
     x = multihost.host_local_to_global(mesh, x_local)
 
-Halos then ride ICI within a host/slice and DCN across hosts automatically —
-``parallel.halo``'s ppermute ring and the GSPMD path are both mesh-agnostic.
+``parallel.halo``'s ppermute ring and the GSPMD path are both
+mesh-agnostic: XLA routes the halo exchanges over whatever links join the
+devices.
 """
 
 from __future__ import annotations
@@ -33,26 +34,20 @@ _CLUSTER_ENV_VARS = (
     "COORDINATOR_ADDRESS",
     "JAX_NUM_PROCESSES",
     "JAX_PROCESS_ID",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-    "CLOUD_TPU_MULTIHOST_BOOTSTRAP",
 )
 
 
 def cluster_configured() -> bool:
-    """True when the environment declares a multi-process cluster.
-    ``TPU_WORKER_HOSTNAMES`` counts only with >1 comma-separated worker —
-    single-worker TPU VMs (and tunneled dev chips) set it to one host."""
-    if any(os.environ.get(var) for var in _CLUSTER_ENV_VARS):
-        return True
-    return "," in os.environ.get("TPU_WORKER_HOSTNAMES", "")
+    """True when the environment declares a multi-process cluster."""
+    return any(os.environ.get(var) for var in _CLUSTER_ENV_VARS)
 
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Bring up the jax distributed runtime.  On TPU pods all arguments are
-    discovered from the environment; on CPU/GPU clusters pass them explicitly
-    (or set JAX_COORDINATOR_ADDRESS etc.).  Safe to call twice.
+    """Bring up the jax distributed runtime.  Pass the coordinator address,
+    process count and this process's id explicitly (or set
+    JAX_COORDINATOR_ADDRESS etc.).  Safe to call twice.
 
     A failed bootstrap RAISES whenever a cluster was requested (explicit
     arguments or cluster env vars): silently degrading to single-process

@@ -5,17 +5,13 @@
 communication — each shard solves its slices independently (the same
 per-slice subproblem as single-device, hence slot-exact iterates by
 construction) and the only collective is one scalar ``psum`` per iteration
-for the separable objective.  The slice-resident Pallas kernel
-(kernels/tgv_resident.py) runs unchanged inside ``shard_map`` on each
-shard's local block.
+for the separable objective.
 
-``axes='3d'``/``'4d'`` couple z (and t) across shard boundaries.  Two
-paths: GSPMD — call :func:`pytv4d_tpu.solvers.tgv.tgv_denoise` on a
-sharded input and XLA's SPMD partitioner inserts the one-plane halo
-``collective-permute``s for the jnp stencils automatically
-(tests/test_sharding.py::test_tgv_gspmd_3d_4d) — or, at kernel speed,
-:func:`make_sharded_tgv_stream_solver`: the streaming Pallas kernels
-inside ``shard_map`` with ghost-plane halos (below).
+``axes='3d'``/``'4d'`` couple z (and t) across shard boundaries: call
+:func:`pytv4d_tpu.solvers.tgv.tgv_denoise` on a sharded input and XLA's
+SPMD partitioner inserts the one-plane halo ``collective-permute``s for
+the jnp stencils automatically
+(tests/test_sharding.py::test_tgv_gspmd_3d_4d).
 """
 
 from __future__ import annotations
@@ -25,9 +21,8 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax, shard_map
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
-from .halo import _is_first, _is_last, _plane_from_left, _plane_from_right
 from .mesh import T_AXIS, Z_AXIS, d_volume_spec, volume_spec
 
 
@@ -39,7 +34,6 @@ def tgv_denoise_sharded(
     alpha0: float = 50.0,
     sigma_tau_split: float = 1.0,
     compute_loss: bool = True,
-    fused: bool = None,
     shard_time: bool = True,
     norm: str = "iso",
     huber_delta: float = 1.0,
@@ -47,8 +41,7 @@ def tgv_denoise_sharded(
     """``axes='2d'`` TGV-2 denoising under ``shard_map`` on ``mesh``.
 
     Input should be placed with ``parallel.mesh.shard_volume``; returns a
-    ``TGVResult`` with the same (z, t)-sharded layout.  ``fused`` follows
-    ``tgv_denoise`` (None = auto per shard on TPU).  Communication: one
+    ``TGVResult`` with the same (z, t)-sharded layout.  Communication: one
     scalar psum per iteration (none with ``compute_loss=False``)."""
     from ..solvers.tgv import TGVResult, tgv_denoise
 
@@ -66,7 +59,7 @@ def tgv_denoise_sharded(
         res = tgv_denoise(
             x_local, n_iter=n_iter, alpha1=alpha1, alpha0=alpha0,
             sigma_tau_split=sigma_tau_split, axes="2d",
-            compute_loss=compute_loss, fused=fused, norm=norm,
+            compute_loss=compute_loss, norm=norm,
             huber_delta=huber_delta,
         )
         loss = lax.psum(res.loss, axes) if compute_loss else res.loss
@@ -74,301 +67,3 @@ def tgv_denoise_sharded(
 
     x_out, w_out, loss = fn(jnp.asarray(x))
     return TGVResult(x=x_out, w=w_out, loss=loss)
-
-
-def _z_halo_lo(a, z_name, nz, ghost: str):
-    """The exchanged LOW boundary plane of ``a`` along axis 0 (the LEFT
-    neighbor's last plane — the z-1 value at this shard's low edge).
-    ``ghost`` chooses the GLOBAL-boundary substitute: 'edge' (replicate the
-    edge plane — makes the ungated one-sided difference exactly zero there)
-    or 'zero' (keep the ppermute zeros — correct for dual-variable reads
-    whose global-boundary coefficient is zero).  The overlapped step issues
-    this BEFORE the interior kernels so the ppermute rides under the
-    compute."""
-    if z_name is None:
-        return a[:1] if ghost == "edge" else jnp.zeros_like(a[:1])
-    lo = _plane_from_left(a, 0, z_name, nz)
-    if ghost == "edge":
-        lo = jnp.where(_is_first(z_name), a[:1], lo)
-    return lo
-
-
-def _z_halo_hi(a, z_name, nz, ghost: str):
-    """HIGH-side counterpart of :func:`_z_halo_lo` (the RIGHT neighbor's
-    first plane — the z+1 value at this shard's high edge)."""
-    if z_name is None:
-        return a[-1:] if ghost == "edge" else jnp.zeros_like(a[:1])
-    hi = _plane_from_right(a, 0, z_name, nz)
-    if ghost == "edge":
-        hi = jnp.where(_is_last(z_name, nz), a[-1:], hi)
-    return hi
-
-
-def _extend_z(a, z_name, nz, ghost_lo: str, ghost_hi: str):
-    """One exchanged halo plane per side along axis 0 (ghost semantics of
-    :func:`_z_halo_lo`), concatenated onto the block."""
-    lo = _z_halo_lo(a, z_name, nz, ghost_lo)
-    hi = _z_halo_hi(a, z_name, nz, ghost_hi)
-    return jnp.concatenate([lo, a, hi], axis=0)
-
-
-def _pad_z(a):
-    return jnp.pad(a, [(1, 1)] + [(0, 0)] * (a.ndim - 1))
-
-
-def make_sharded_tgv_stream_solver(
-    mesh: Mesh,
-    global_shape,
-    axes: str = "4d",
-    *,
-    alpha1: float,
-    alpha0: float,
-    n_iter: int,
-    sigma_tau_split: float = 1.0,
-    dtype: str = "float32",
-    interpret: bool = None,
-    shard_time: bool = True,
-    norm: str = "iso",
-    huber_delta: float = 1.0,
-    overlap: bool = False,
-):
-    """Sharded COUPLED TGV-2 (``axes='3d'``/``'4d'``): the streaming Pallas
-    kernels (kernels/tgv_stream.py) inside ``shard_map`` over a z-sharded
-    mesh, with ghost-plane halos.
-
-    Per iteration: exchange one xb/wb boundary plane (``ppermute``), run
-    pass PQ on the halo-extended local block, exchange the new duals'
-    boundary planes, run pass XW, then apply the two global-edge
-    corrections the extended kernels cannot see (their z gates fire at
-    ghost planes, which are discarded): the last global plane's D^T must
-    not include the z-dual's own-slot term, and the first global plane's
-    E^T must not include the z-adjoint own-slot terms.  Slot-exact vs the
-    unsharded path (tests/test_sharding.py::test_tgv_stream_sharded).
-
-    ``overlap=True`` (opt-in; requires z sharded with >= 3 local planes):
-    halo/compute-overlapped execution, the TGV analog of the fused CP
-    overlap (SURVEY.md section 7 hard part 5).  Each pass issues its
-    boundary-plane ``ppermute`` FIRST, then runs the UNEXTENDED full
-    kernel — whose interior planes need no halos, so XLA's async
-    collective scheduling hides the exchange under the compute — and
-    recomputes the two edge planes with tiny 3-plane-window kernel calls
-    (middle slot = the true edge plane, so no in-kernel gate fires; the
-    other slots are discarded).  Identical numerics (the same global-edge
-    corrections apply), but ~(L+6)/(L+2) the per-pass plane compute of
-    the ghost path at L local planes — worth it when the exchange is
-    latency-bound (DCN multi-host), not measured on single-host ICI, so
-    the default stays the ghost path.
-
-    ``'3d'`` does not couple time, so the mesh may shard t too (the time
-    axis is a pure batch dim there); ``'4d'`` requires t unsharded.
-    Returns ``solve(x0) -> TGVResult`` (empty loss — the streaming path
-    does not produce a loss history; evaluate the objective on the result
-    if needed).  ``x0`` sharded via ``parallel.mesh.shard_volume``."""
-    from ..kernels.dispatch import default_interpret
-    from ..kernels.tgv_stream import (
-        _MODE_AXES,
-        _q_pairs,
-        from_internal,
-        make_tgv_stream_step,
-    )
-    from ..solvers.tgv import TGVResult
-
-    if axes not in ("3d", "4d"):
-        raise ValueError(
-            f"make_sharded_tgv_stream_solver is for the coupled modes "
-            f"('3d'/'4d'); axes='2d' shards with zero communication via "
-            f"tgv_denoise_sharded — got {axes!r}"
-        )
-    if interpret is None:
-        interpret = default_interpret()
-    if Z_AXIS not in mesh.shape:
-        raise ValueError(
-            f"mesh must have a '{Z_AXIS}' axis (parallel.mesh.make_mesh); "
-            f"got axes {tuple(mesh.shape)}"
-        )
-    nz = mesh.shape[Z_AXIS]
-    # a pure-z mesh (no 't' axis) is natural for the z-coupled modes
-    nt = mesh.shape.get(T_AXIS, 1) if shard_time else 1
-    if axes == "4d" and nt > 1:
-        raise ValueError(
-            "axes='4d' couples time across shards; use a z-only mesh "
-            "(shard_time=False or t=1)"
-        )
-    Nz_g, M_g, Nr, Nc = global_shape
-    if Nz_g % nz or M_g % nt:
-        raise ValueError(
-            f"global shape {global_shape} not divisible by mesh "
-            f"(z={nz}, t={nt})"
-        )
-    local = (Nz_g // nz, M_g // nt, Nr, Nc)
-
-    overlap = bool(overlap)
-    if overlap and (nz == 1 or local[0] < 3):
-        raise ValueError(
-            "overlap=True requires a z-sharded mesh and >= 3 local z "
-            "planes (the interior must be nonempty while the halo "
-            "exchange is in flight)"
-        )
-
-    mk = functools.partial(
-        make_tgv_stream_step, mode=axes, alpha1=float(alpha1),
-        alpha0=float(alpha0), sigma_tau_split=float(sigma_tau_split),
-        dtype_name=jnp.dtype(dtype).name, interpret=interpret, norm=norm,
-        huber_delta=float(huber_delta),
-    )
-    if overlap:
-        full_k = mk(local)
-        win_k = mk((3,) + local[1:])
-        tau = full_k.tau
-    else:
-        step_k = mk((local[0] + 2,) + local[1:])
-        tau = step_k.tau
-    ax_list = _MODE_AXES[axes]
-    n = len(ax_list)
-    pairs = _q_pairs(n)
-    # z is field/axis 0 in both coupled modes
-    q_zz_chan = pairs.index((0, 0))
-    q_z_off = [(c, j) for c, (i, j) in enumerate(pairs) if i == 0 and j != 0]
-
-    z_name = Z_AXIS if nz > 1 else None
-    t_spec = T_AXIS if nt > 1 else None
-    vol = P(Z_AXIS if nz > 1 else None, t_spec, None, None)
-    dint = P(Z_AXIS if nz > 1 else None, t_spec, None, None, None)
-
-    def _edge_corrections(x2, xb2, w2, wb2, p2, q2):
-        """Global-edge fixes shared by both paths (the kernels' own-slot z
-        gates never fire at the true global edge planes): the last global
-        plane's D^T must not include -p_z[L-1]; the first global plane's
-        E^T must not include the z-adjoint own-slot terms q_zz (field z)
-        and 0.5 q_z{j} (field j)."""
-        one = jnp.ones((), x2.dtype)
-        zero = jnp.zeros((), x2.dtype)
-        if z_name is None:
-            last_g = first_g = one
-        else:
-            last_g = jnp.where(_is_last(z_name, nz), one, zero)
-            first_g = jnp.where(_is_first(z_name), one, zero)
-        corr_x = (tau / (1.0 + tau)) * p2[-1:, :, 0] * last_g
-        x2 = x2.at[-1:].add(-corr_x)
-        xb2 = xb2.at[-1:].add(-2.0 * corr_x)
-        extra = [jnp.zeros_like(w2[:1, :, 0]) for _ in range(n)]
-        extra[0] = q2[:1, :, q_zz_chan]
-        for c, j in q_z_off:
-            extra[j] = extra[j] + 0.5 * q2[:1, :, c]
-        corr_w = tau * jnp.stack(extra, axis=2) * first_g
-        w2 = w2.at[:1].add(corr_w)
-        wb2 = wb2.at[:1].add(2.0 * corr_w)
-        return x2, xb2, w2, wb2
-
-    shard_kw = dict(
-        mesh=mesh, in_specs=(vol, vol, dint, dint, dint, dint, vol),
-        out_specs=(vol, vol, dint, dint, dint, dint), check_vma=False,
-    )
-
-    if overlap:
-        def _win_lo(a, lo=None):
-            """3-plane window around the low edge: [halo/pad, plane 0, 1].
-            The pad default is for slots the KEPT (middle) output never
-            reads — no exchange is issued for those."""
-            pad = jnp.zeros_like(a[:1]) if lo is None else lo
-            return jnp.concatenate([pad, a[:2]], axis=0)
-
-        def _win_hi(a, hi=None):
-            """3-plane window around the high edge: [L-2, L-1, halo/pad]."""
-            pad = jnp.zeros_like(a[:1]) if hi is None else hi
-            return jnp.concatenate([a[-2:], pad], axis=0)
-
-        def _merge(full, lo3, hi3):
-            """Edge planes from the windows' middle slots, interior from
-            the full kernel (whose edge-plane outputs used clamped/gated
-            reads)."""
-            return full.at[:1].set(lo3[1:2]).at[-1:].set(hi3[1:2])
-
-        @functools.partial(shard_map, **shard_kw)
-        def step(x, xb, w, wb, p, q, x0):
-            # issue the boundary-plane exchange FIRST; the full kernel's
-            # interior planes have no data dependence on it, so the
-            # ppermute rides under the compute.  Edge planes are then
-            # recomputed by two 3-plane window calls (middle slot = the
-            # true edge plane).  Only the planes the kept slots actually
-            # read are exchanged: pass PQ's stencil is fwd-in-xb (needs
-            # xb[z+1] at the high edge) and bwd-in-wb (wb[z-1] at the low
-            # edge); the opposite sides are unread pads.
-            xb_hi = _z_halo_hi(xb, z_name, nz, "edge")
-            wb_lo = _z_halo_lo(wb, z_name, nz, "edge")
-            # windows before the full call: their operands are fresh
-            # 3-plane slices, so the full call stays the LAST use of p/q
-            # and its input_output_aliases donate in place (no defensive
-            # copies)
-            p_lo3, q_lo3 = win_k.pq(_win_lo(xb), _win_lo(wb, wb_lo),
-                                    _win_lo(p), _win_lo(q))
-            p_hi3, q_hi3 = win_k.pq(_win_hi(xb, xb_hi), _win_hi(wb),
-                                    _win_hi(p), _win_hi(q))
-            p_full, q_full = full_k.pq(xb, wb, p, q)
-            p2 = _merge(p_full, p_lo3, p_hi3)
-            q2 = _merge(q_full, q_lo3, q_hi3)
-
-            # pass XW adjoints read the NEW duals' neighbors: p[z-1] at
-            # the low edge, q[z+1] at the high (zero ghosts at the global
-            # boundary = the zero coefficients there)
-            p_lo = _z_halo_lo(p2, z_name, nz, "zero")
-            q_hi = _z_halo_hi(q2, z_name, nz, "zero")
-            lo3 = win_k.xw(_win_lo(x), _win_lo(x0), _win_lo(p2, p_lo),
-                           _win_lo(w), _win_lo(q2))
-            hi3 = win_k.xw(_win_hi(x), _win_hi(x0), _win_hi(p2),
-                           _win_hi(w), _win_hi(q2, q_hi))
-            x_f, xb_f, w_f, wb_f = full_k.xw(x, x0, p2, w, q2)
-            x2, xb2, w2, wb2 = (
-                _merge(f, lo, hi) for f, lo, hi in
-                zip((x_f, xb_f, w_f, wb_f), lo3, hi3)
-            )
-            x2, xb2, w2, wb2 = _edge_corrections(x2, xb2, w2, wb2, p2, q2)
-            return x2, xb2, w2, wb2, p2, q2
-    else:
-        @functools.partial(shard_map, **shard_kw)
-        def step(x, xb, w, wb, p, q, x0):
-            # pass PQ on the halo-extended block: edge ghosts make the
-            # one-sided z differences exactly zero at the global boundary,
-            # so the global stencil is reproduced without any in-kernel
-            # global gating
-            xb_ext = _extend_z(xb, z_name, nz, "zero", "edge")
-            wb_ext = _extend_z(wb, z_name, nz, "edge", "zero")
-            p2, q2 = step_k.pq(xb_ext, wb_ext, _pad_z(p), _pad_z(q))
-            p2, q2 = p2[1:-1], q2[1:-1]
-
-            # pass XW: the adjoints read the NEW duals' neighbor planes —
-            # zero ghosts at the global boundary are exactly the zero
-            # coefficients
-            p_ext = _extend_z(p2, z_name, nz, "zero", "zero")
-            q_ext = _extend_z(q2, z_name, nz, "zero", "zero")
-            x2, xb2, w2, wb2 = step_k.xw(_pad_z(x), _pad_z(x0), p_ext,
-                                         _pad_z(w), q_ext)
-            x2, xb2, w2, wb2 = x2[1:-1], xb2[1:-1], w2[1:-1], wb2[1:-1]
-            x2, xb2, w2, wb2 = _edge_corrections(x2, xb2, w2, wb2, p2, q2)
-            return x2, xb2, w2, wb2, p2, q2
-
-    n_q = len(pairs)
-    dt = jnp.dtype(dtype)
-
-    @jax.jit
-    def solve(x0):
-        x0 = x0.astype(dt)
-        w0 = jnp.zeros((Nz_g, M_g, n, Nr, Nc), dt)
-        q0 = jnp.zeros((Nz_g, M_g, n_q, Nr, Nc), dt)
-        w0 = jax.lax.with_sharding_constraint(w0, NamedSharding(mesh, dint))
-        q0 = jax.lax.with_sharding_constraint(q0, NamedSharding(mesh, dint))
-
-        def body(carry, _):
-            return step(*carry, x0), None
-
-        (x, _, w, _, _, _), _ = jax.lax.scan(
-            body, (x0, x0, w0, w0, w0, q0), length=n_iter
-        )
-        return x, w
-
-    def run(x0):
-        x, w = solve(jnp.asarray(x0))
-        return TGVResult(x=x, w=from_internal(w),
-                         loss=jnp.zeros((0,), dt))
-
-    return run

@@ -52,7 +52,7 @@ def default_tau(cfg: TVConfig, Nz: int, M: int, sigma_A: float = 1.0) -> float:
 def _require_scalar_weight(fidelity_weight, what: str):
     """The denoising solvers jit with ``fidelity_weight`` static — an array
     weight would die with an opaque unhashable-type jit error, so fail with
-    guidance first (ADVICE r2)."""
+    guidance first."""
     import numpy as np
 
     if isinstance(fidelity_weight, (int, float)):
@@ -87,9 +87,20 @@ def dual_prox(p, reg, norm: str, sigma=1.0, huber_delta: float = 1.0):
     return p / jnp.maximum(1.0, p_norms / reg)
 
 
+def store_dual(y_D, dual_dtype):
+    """``y_D`` rounded to its storage dtype ``dual_dtype`` (None: as is).
+    XLA drops a narrowing convert that is widened again (excess precision
+    is allowed), which left an f32 copy of the Nd-channel dual beside the
+    bf16 one; the barrier keeps the rounded dual as the only copy, which
+    the primal update then reads."""
+    if dual_dtype is None or jnp.dtype(dual_dtype) == y_D.dtype:
+        return y_D
+    return jax.lax.optimization_barrier(y_D.astype(dual_dtype))
+
+
 def cp_step(state: CPState, x_noisy, *, reg, sigma_D, sigma_A, tau, cfg: TVConfig,
             mask_static=None, weight_time=None, fidelity="l2",
-            fidelity_weight=1.0, nonneg=False):
+            fidelity_weight=1.0, nonneg=False, dual_dtype=None):
     """One CP iteration, exactly the reference recipe (``README.md:146-157``):
 
     - fidelity dual:  y_A <- (y_A + sigma_A (x - x0)) / (1 + sigma_A)
@@ -100,6 +111,10 @@ def cp_step(state: CPState, x_noisy, *, reg, sigma_D, sigma_A, tau, cfg: TVConfi
       projection when ``nonneg``)
     - loss:           F(x_new) + reg * L21(D x_old)
       (the reference reuses the pre-update ``D_x`` in the loss line)
+
+    ``dual_dtype`` rounds the new y_D to its storage dtype before the
+    primal update reads it, so a low-precision dual is written once, in
+    that dtype; y_D may come in stored in it and is widened where used.
     """
     from .fidelity import fidelity_dual_prox, fidelity_loss
 
@@ -109,9 +124,10 @@ def cp_step(state: CPState, x_noisy, *, reg, sigma_D, sigma_A, tau, cfg: TVConfi
     y_A = fidelity_dual_prox(y_A, x, x_noisy, sigma_A, fidelity,
                              fidelity_weight)
     D_x = D(x, cfg.scheme, **kw)
-    p = y_D + sigma_D * D_x
-    y_D = dual_prox(p, reg, cfg.norm, sigma_D, cfg.huber_delta)
-    x = x - tau * y_A - tau * D_T(y_D, cfg.scheme, **kw)
+    p = y_D.astype(D_x.dtype) + sigma_D * D_x
+    y_D = store_dual(dual_prox(p, reg, cfg.norm, sigma_D, cfg.huber_delta),
+                     dual_dtype)
+    x = x - tau * y_A - tau * D_T(y_D.astype(x.dtype), cfg.scheme, **kw)
     if nonneg:
         x = jnp.maximum(x, 0.0)
     loss = fidelity_loss(x, x_noisy, fidelity, fidelity_weight) + reg * tv_norm(
@@ -246,12 +262,17 @@ def pd_gap(state: CPState, x_noisy, reg: float = 25.0,
     return primal - dual
 
 
-def init_state(x_noisy, cfg: TVConfig, x_init=None) -> CPState:
+def init_state(x_noisy, cfg: TVConfig, x_init=None,
+               dual_dtype=None) -> CPState:
+    """A cold CP state; y_D is allocated directly in ``dual_dtype``
+    (default: the input's dtype), so a low-precision dual never exists at
+    full precision."""
     Nz, M = x_noisy.shape[0], x_noisy.shape[1]
     Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg, cfg.reg_time)
     x = x_noisy if x_init is None else x_init
     y_A = jnp.zeros_like(x_noisy)
-    y_D = jnp.zeros((Nz, Nd, M) + x_noisy.shape[2:], dtype=x_noisy.dtype)
+    y_D = jnp.zeros((Nz, Nd, M) + x_noisy.shape[2:],
+                    dtype=dual_dtype or x_noisy.dtype)
     return CPState(x=x, y_A=y_A, y_D=y_D)
 
 
@@ -266,7 +287,6 @@ def chambolle_pock(
     state: CPState = None,
     mask_static=None,
     weight_time=None,
-    fused: bool = None,
     dual_dtype: str = None,
     return_dual: bool = True,
     progress_every: int = 0,
@@ -286,7 +306,7 @@ def chambolle_pock(
     return _chambolle_pock_jit(
         x_noisy, n_iter=n_iter, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
         tau=tau, cfg=cfg, state=state, mask_static=mask_static,
-        weight_time=weight_time, fused=fused, dual_dtype=dual_dtype,
+        weight_time=weight_time, dual_dtype=dual_dtype,
         return_dual=return_dual, progress_every=progress_every,
         progress_fn=progress_fn, fidelity=fidelity,
         fidelity_weight=fidelity_weight, nonneg=nonneg,
@@ -297,7 +317,7 @@ def chambolle_pock(
 @functools.partial(
     jax.jit,
     static_argnames=("n_iter", "cfg", "reg", "sigma_D", "sigma_A", "tau",
-                     "fused", "dual_dtype", "return_dual", "progress_every",
+                     "dual_dtype", "return_dual", "progress_every",
                      "progress_fn", "fidelity", "fidelity_weight", "nonneg"),
 )
 def _chambolle_pock_jit(
@@ -311,7 +331,6 @@ def _chambolle_pock_jit(
     state: CPState = None,
     mask_static=None,
     weight_time=None,
-    fused: bool = None,
     dual_dtype: str = None,
     return_dual: bool = True,
     progress_every: int = 0,
@@ -326,15 +345,16 @@ def _chambolle_pock_jit(
     sigma_A=1.0, tau=1/(||D||^2 + sigma_A).  Pass ``state`` (e.g. from a
     checkpoint, see ``solvers.state``) to resume a run.
 
-    ``fused=None`` auto-selects the fused Pallas step (kernels/fused.py) when
-    the problem supports it; ``fused=False`` forces the jnp path.  Static
-    masks / ``weight_time`` planes shaped ``(1, 1, N, N)`` ride the fused
-    path; full per-voxel weight fields fall back to jnp.
-    ``dual_dtype='bfloat16'`` (fused path only) stores the TV dual y_D in
-    bf16 — ~30% less HBM traffic per iteration at a small precision cost.
+    Storage and compute precision: x and y_A are carried between
+    iterations in the input's dtype and the TV dual y_D in ``dual_dtype``
+    (default: the input's dtype); every iteration computes in at least
+    float32.  ``dual_dtype='bfloat16'`` halves the largest state (y_D has
+    Nd channels, and the primal update reads it as rounded to bf16), and a
+    bfloat16 ``x_noisy`` halves the rest, at a small precision cost.  On
+    the H100 the bf16 dual is also faster than f32 (PERF.md).
     ``return_dual=False`` drops y_D from the result (state.y_D is None) —
     needed when the volume is so large that converting the dual back to the
-    public layout would not fit HBM.
+    input's dtype would not fit device memory.
     ``progress_every=k`` invokes ``progress_fn(iteration, loss)`` on the
     host every k iterations from inside the scan (``solvers.progress``;
     zero cost when 0; ``progress_fn`` must be hashable).
@@ -344,98 +364,40 @@ def _chambolle_pock_jit(
     (requires ``x_noisy >= 0``); ``fidelity_weight`` must be a SCALAR here
     (static — per-pixel weight arrays are the inverse solvers' job:
     ``cp_inverse(A=identity)``); ``nonneg=True`` projects onto x >= 0.
-    All three ride the fused kernels.
     """
-    from ..kernels.dispatch import (
-        can_fuse,
-        default_interpret,
-        t_plane_multiplier,
-    )
+    from .progress import emit_progress
 
     if tau is None:
         tau = default_tau(cfg, x_noisy.shape[0], x_noisy.shape[1], sigma_A)
-    if fused is None:
-        fused = can_fuse(
-            tuple(x_noisy.shape), cfg, mask_static=mask_static,
-            dtype=jnp.dtype(x_noisy.dtype).name, weight_time=weight_time,
-        )
-    if dual_dtype is not None and not fused:
-        raise ValueError(
-            "dual_dtype requires the fused kernel path (fused=True), which "
-            "this problem instance does not support (see kernels.dispatch."
-            "can_fuse: f32 volumes without static masks)"
-        )
-
-    if fused:
-        # y_D rides the scan in the kernel-internal channel-contiguous layout
-        # (one transpose in, one out — not per iteration); for a fresh run
-        # it is allocated directly in its storage dtype so pod-scale volumes
-        # never materialize the f32 dual (12.9 GB for the (96,16,512,512)
-        # north-star case)
-        from ..kernels.fused import (
-            cp_step_fused_internal,
-            from_internal_layout,
-            to_internal_layout,
-        )
-
-        interpret = default_interpret()
-        out_dual_dtype = x_noisy.dtype
-        tmul = t_plane_multiplier(tuple(x_noisy.shape), cfg, mask_static,
-                                  weight_time, dtype=x_noisy.dtype)
-
-        if state is None:
-            Nz, M = x_noisy.shape[0], x_noisy.shape[1]
-            Nd = num_channels(cfg.scheme, Nz, M, cfg.reg_z_over_reg,
-                              cfg.reg_time)
-            y_D_int = jnp.zeros((Nz, M, Nd) + x_noisy.shape[2:],
-                                dtype=dual_dtype or x_noisy.dtype)
-            x, y_A = x_noisy, jnp.zeros_like(x_noisy)
-        else:
-            out_dual_dtype = state.y_D.dtype
-            y_D_int = to_internal_layout(state.y_D)
-            if dual_dtype is not None:
-                y_D_int = y_D_int.astype(dual_dtype)
-            x, y_A = state.x, state.y_A
-
-        from .progress import emit_progress
-
-        def body_fused(carry, i):
-            x, y_A, y_D_int = carry
-            x, y_A, y_D_int, loss = cp_step_fused_internal(
-                x, y_A, y_D_int, x_noisy, reg=reg, sigma_D=sigma_D,
-                sigma_A=sigma_A, tau=tau, cfg=cfg, interpret=interpret,
-                tmul=tmul, fidelity=fidelity,
-                fid_weight=float(fidelity_weight), nonneg=nonneg,
-            )
-            emit_progress(i, loss, progress_every, progress_fn)
-            return (x, y_A, y_D_int), loss
-
-        (x, y_A, y_D_int), losses = jax.lax.scan(
-            body_fused, (x, y_A, y_D_int), jnp.arange(n_iter)
-        )
-        y_D_out = (
-            from_internal_layout(y_D_int).astype(out_dual_dtype)
-            if return_dual else None
-        )
-        final = CPState(x, y_A, y_D_out)
-        return CPResult(x=final.x, state=final, loss=losses)
-
+    store_dtype = x_noisy.dtype
+    dual_store = jnp.dtype(dual_dtype) if dual_dtype else None
     if state is None:
-        state = init_state(x_noisy, cfg)
-
-    from .progress import emit_progress
+        state = init_state(x_noisy, cfg, dual_dtype=dual_store)
+        out_dual_dtype = store_dtype
+    else:
+        out_dual_dtype = state.y_D.dtype
+    if dual_store is None:
+        dual_store = state.y_D.dtype
+    state = CPState(state.x.astype(store_dtype), state.y_A.astype(store_dtype),
+                    state.y_D.astype(dual_store))
+    compute = jnp.promote_types(store_dtype, jnp.float32)
+    x0 = x_noisy.astype(compute)
 
     def body(st, i):
         st, loss = cp_step(
-            st, x_noisy, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A,
-            tau=tau, cfg=cfg, mask_static=mask_static,
-            weight_time=weight_time, fidelity=fidelity,
-            fidelity_weight=fidelity_weight, nonneg=nonneg,
+            CPState(st.x.astype(compute), st.y_A.astype(compute), st.y_D),
+            x0, reg=reg, sigma_D=sigma_D, sigma_A=sigma_A, tau=tau, cfg=cfg,
+            mask_static=mask_static, weight_time=weight_time,
+            fidelity=fidelity, fidelity_weight=fidelity_weight,
+            nonneg=nonneg, dual_dtype=dual_store,
         )
         emit_progress(i, loss, progress_every, progress_fn)
-        return st, loss
+        return CPState(st.x.astype(store_dtype), st.y_A.astype(store_dtype),
+                       st.y_D), loss
 
     final, losses = jax.lax.scan(body, state, jnp.arange(n_iter))
+    y_D = final.y_D.astype(out_dual_dtype) if return_dual else None
+    final = CPState(final.x, final.y_A, y_D)
     return CPResult(x=final.x, state=final, loss=losses)
 
 

@@ -43,7 +43,7 @@ def gd_step(x, x_noisy, *, reg, step_size, cfg: TVConfig, mask_static=None,
 
 
 @functools.partial(
-    jax.jit, static_argnames=("n_iter", "cfg", "reg", "step_size", "fused",
+    jax.jit, static_argnames=("n_iter", "cfg", "reg", "step_size",
                               "progress_every", "progress_fn")
 )
 def subgradient_descent(
@@ -55,7 +55,6 @@ def subgradient_descent(
     x_init=None,
     mask_static=None,
     weight_time=None,
-    fused: bool = None,
     progress_every: int = 0,
     progress_fn=None,
 ) -> GDResult:
@@ -63,9 +62,7 @@ def subgradient_descent(
 
     Defaults are the reference's README recipe (``README.md:108-116``:
     reg=25, step=5e-3, 300 iterations). ``x_init`` defaults to the noisy
-    image, as in the recipe.  ``fused=None`` auto-selects the fused Pallas
-    tv+subgradient kernels when supported (all four schemes, iso and aniso
-    norms, ``(1, 1, N, N)`` static masks / weight_time planes).
+    image, as in the recipe.
 
     ``progress_every=k`` invokes ``progress_fn(iteration, loss)`` on the
     host every k iterations from inside the device-resident scan (a gated
@@ -73,42 +70,15 @@ def subgradient_descent(
     a stderr printer; it must be hashable (a plain function, not a lambda
     built per call site, or jit re-traces).
     """
-    from ..kernels.dispatch import (
-        can_fuse,
-        default_interpret,
-        t_plane_multiplier,
-    )
+    from .progress import emit_progress
 
     x0 = x_noisy
     x = x0 if x_init is None else x_init
-    if fused is None:
-        fused = can_fuse(
-            tuple(x_noisy.shape), cfg, mask_static=mask_static,
-            dtype=jnp.dtype(x_noisy.dtype).name, weight_time=weight_time,
-            for_gd=True,
-        )
-    tmul = (
-        t_plane_multiplier(tuple(x_noisy.shape), cfg, mask_static,
-                           weight_time, dtype=x_noisy.dtype)
-        if fused else None
-    )
-
-    from .progress import emit_progress
 
     def body(x, i):
-        if fused:
-            from ..kernels.fused import tv_and_subgrad_fused
-
-            tv, G = tv_and_subgrad_fused(x, cfg, interpret=default_interpret(),
-                                         tmul=tmul)
-        else:
-            tv, G = tv_and_subgrad(
-                x, cfg.scheme, mask_static=mask_static,
-                weight_time=weight_time, norm_type=cfg.norm,
-                huber_delta=cfg.huber_delta, **cfg.kwargs()
-            )
-        x_new = x - step_size * ((x - x0) + reg * G)
-        loss = 0.5 * jnp.sum(jnp.square(x_new - x0)) + reg * tv
+        x_new, loss, tv = gd_step(x, x0, reg=reg, step_size=step_size,
+                                  cfg=cfg, mask_static=mask_static,
+                                  weight_time=weight_time)
         emit_progress(i, loss, progress_every, progress_fn)
         return x_new, (loss, tv)
 

@@ -184,8 +184,7 @@ def pd_gap_inverse(
 ):
     """Certified duality gap for the inverse problem
     ``min_{x in C} F(A x) + reg TV(x)`` at ``(state.x, state.y_A,
-    state.y_D)`` — the inverse-solver analog of :func:`..cp.pd_gap`
-    (VERDICT r2 item 4).
+    state.y_D)`` — the inverse-solver analog of :func:`..cp.pd_gap`.
 
     Unlike denoising, the fidelity here composes with ``A``, so Fenchel
     duality leaves a residual ``r = A^T y_A + D^T y_D`` that is only zero
@@ -263,7 +262,6 @@ def cp_inverse(
     fidelity_weight=1.0,
     nonneg: bool = False,
     state: Optional[InverseState] = None,
-    fused: bool = None,
     dual_dtype: str = None,
     loss_every: int = 1,
     precond_sums=None,
@@ -309,24 +307,20 @@ def cp_inverse(
     ``functools.partial(cp_inverse, A, vol_shape=shape, ...)`` so the
     data ``b`` is the leading argument).
 
-    ``fused=None`` auto-selects the fused Pallas TV kernels for the D-half
-    of the iteration (``_make_inverse_run_fused``) when the problem
-    supports it: f32/bf16 volumes, scalar steps (``precond=False``),
-    concrete ``reg``.  ``fused=False`` forces the jnp path (required when
-    differentiating through the solve w.r.t. ``reg``).
-    ``dual_dtype='bfloat16'`` (fused path only) stores the Nd-channel TV
-    dual in bf16 — at CT production scale the dual is by far the largest
-    state (e.g. 2.1 GB at (16,4,512,512)×8 channels), so this roughly
-    halves the TV-side HBM traffic per iteration.
+    ``dual_dtype='bfloat16'`` stores the Nd-channel TV dual between
+    iterations in bf16 (each iteration still computes in float32, and the
+    primal update reads the dual as rounded to bf16) — at CT production
+    scale the dual is by far the largest state (e.g. 2.1 GB at
+    (16,4,512,512)×8 channels in f32), so this halves its storage.  Its
+    effect on time is measured in PERF.md.
 
     ``loss_every=k`` (a positive divisor of ``n_iter``) samples the loss
     once per k iterations (TGV convention: ``result.loss`` has length
     ``n_iter // k``, each entry the loss at its chunk's last iteration).
     The forward projection ``A(x_new)`` is always paid — the carry needs
     it for the linearity rewrite ``A(x_bar) = 2 A(x_new) - A(x)`` — so
-    skipping the loss only skips the (cheap) TV-norm evaluation and
-    fidelity sum; at production CT scale ``loss_every=10`` saves ~10-15 %
-    of the iteration cost.
+    skipping the loss only skips the TV-norm evaluation and fidelity sum
+    on k - 1 of every k iterations.
     """
     from .fidelity import validate_fidelity
 
@@ -365,37 +359,6 @@ def cp_inverse(
         x_init, dtype)
 
     reg_traced = isinstance(reg, jax.core.Tracer)
-    from ..kernels.dispatch import can_fuse
-
-    if fused is None:
-        fused = (not precond and not reg_traced
-                 and can_fuse(tuple(vol_shape), cfg,
-                              dtype=jnp.dtype(dtype).name))
-    if fused and (precond or reg_traced):
-        raise ValueError(
-            "fused=True is incompatible with precond=True (per-pixel step "
-            "maps) and with a traced reg (the fused kernels bake reg and "
-            "the steps as compile-time constants) — use fused=False"
-        )
-    if fused and not can_fuse(tuple(vol_shape), cfg,
-                              dtype=jnp.dtype(dtype).name):
-        # validate explicit fused=True too, so unsupported dtypes/ranks/
-        # VMEM-overflowing tiles fail here instead of deep inside the
-        # Pallas kernel builders with an opaque Mosaic error
-        raise ValueError(
-            f"fused=True cannot serve this problem (see kernels.dispatch."
-            f"can_fuse): volume shape {tuple(vol_shape)}, dtype "
-            f"{jnp.dtype(dtype).name}, cfg={cfg} — the fused kernels need "
-            f"rank-4 f32/bf16 volumes whose row tiles fit VMEM; use "
-            f"fused=False (or None for auto-selection)"
-        )
-    if dual_dtype is not None and not fused:
-        raise ValueError(
-            "dual_dtype requires the fused kernel path (fused=True), which "
-            "this problem instance does not support (see kernels.dispatch."
-            "can_fuse: f32/bf16 volumes, scalar steps, concrete reg)"
-        )
-
     if precond_sums is not None and not precond:
         raise ValueError("precond_sums requires precond=True")
     if precond_scale != 1.0 and not precond:
@@ -407,29 +370,12 @@ def cp_inverse(
     # the jitted run as traced, loop-invariant arguments
     op_consts = A.prepare() if _operator_proto(A) else ()
 
-    if fused:
-        from ..kernels.fused import from_internal_layout
-
-        out_dual_dtype = dtype if state is None else state.y_D.dtype
-        run = _make_inverse_run_fused(
-            A, A_T, tuple(vol_shape), cfg, fidelity, bool(nonneg),
-            int(n_iter), jnp.dtype(dtype).name, dual_dtype, Nd,
-            state is None, float(reg), float(sigma), float(tau),
-            float(sigma_A), int(loss_every),
-        )
-        (x, x_bar, y_A, y_D_int, s_x, s_xb), losses = run(b, init, fw,
-                                                          op_consts)
-        final = InverseState(
-            x, x_bar, y_A,
-            from_internal_layout(y_D_int).astype(out_dual_dtype),
-            s_x, s_xb)
-        return InverseResult(x=final.x, loss=losses, state=final)
-
     run = _make_inverse_run(
         A, A_T, tuple(vol_shape), cfg, bool(precond), fidelity,
         bool(nonneg), int(n_iter), jnp.dtype(dtype).name, Nd,
         fresh=state is None, loss_every=int(loss_every),
         has_sums=precond_sums is not None,
+        dual_dtype_name=jnp.dtype(dual_dtype).name if dual_dtype else None,
     )
     steps = ((0.0, 0.0, 0.0) if precond else (sigma, tau, sigma_A))
     # reg stays traced when the caller differentiates through the solve
@@ -440,129 +386,30 @@ def cp_inverse(
     final, losses = run(b, init, fw, reg_t, *steps, op_consts, psums,
                         jnp.asarray(float(precond_scale), dtype))
     final = InverseState(*final)
+    if dual_dtype is not None:
+        out_dual = dtype if state is None else state.y_D.dtype
+        final = final._replace(y_D=final.y_D.astype(out_dual))
     return InverseResult(x=final.x, loss=losses, state=final)
-
-
-@functools.lru_cache(maxsize=32)
-def _make_inverse_run_fused(A, A_T, vol_shape, cfg, fidelity, nonneg,
-                            n_iter, dtype_name, dual_dtype_name, Nd, fresh,
-                            reg, sigma, tau, sigma_A, loss_every=1):
-    """Fused-kernel inverse CP executable: the TV half of the ``K=[A; D]``
-    iteration rides the Pallas pass pair — ``make_tv_dual_kernel`` (TV
-    dual prox + local adjoint part) and ``make_cp_primal_kernel`` with the
-    backprojected volume ``A^T y_A`` riding its y_A slot — while the
-    measurement-space fidelity dual and the projector stay jnp/XLA.  The
-    loss's TV value comes from ``make_tv_norms_kernel`` partials.
-
-    ``reg`` and the step scalars are BAKED into the kernels (compile-time
-    constants): traced-reg use cases (``reg_discrepancy`` warm-started
-    bisections, hyperparameter gradients) take the jnp run, where they
-    stay traced arguments.  Unsharded volumes only."""
-    from ..kernels.dispatch import default_interpret
-    from ..kernels.fused import (
-        _sum_parts,
-        make_cp_primal_kernel,
-        make_tv_dual_kernel,
-        make_tv_norms_kernel,
-        to_internal_layout,
-    )
-    from .fidelity import fidelity_dual_prox, fidelity_loss
-
-    interpret = default_interpret()
-    shape = tuple(vol_shape)
-    dual_name = dual_dtype_name or dtype_name
-    tv_dual = make_tv_dual_kernel(cfg, shape, dtype_name, sigma, reg,
-                                  interpret, dual_dtype_name=dual_name)
-    primal = make_cp_primal_kernel(cfg, shape, dtype_name, tau, interpret,
-                                   dual_dtype_name=dual_name, nonneg=nonneg)
-    tv_norms = make_tv_norms_kernel(cfg, shape, dtype_name, interpret)
-    proto = _operator_proto(A)
-
-    @jax.jit
-    def run(b, init, fw, op_consts):
-        A_, A_T_ = _bind_operator(A, A_T, proto, op_consts, shape,
-                                  jnp.dtype(dtype_name))
-        # A is LINEAR (a CP requirement), so the over-relaxed projection
-        # A(x_bar) = A(2 x_new - x) = 2 A(x_new) - A(x) comes from carried
-        # sinogram images of the iterates — ONE forward + one adjoint per
-        # iteration instead of three applications (the loss reuses the
-        # same A(x_new)); fresh one-step f32 combination, no accumulation
-        if fresh:
-            x0 = init
-            s0 = A_(x0)
-            st = (x0, s0, s0, jnp.zeros_like(b),
-                  jnp.zeros((shape[0], shape[1], Nd) + shape[2:],
-                            jnp.dtype(dual_name)))
-            x_bar0 = x0
-        else:
-            x, x_bar, y_A, y_D_pub = init[:4]
-            s_x = init.s_x if init.s_x is not None else A_(x)
-            s_xb = init.s_x_bar if init.s_x_bar is not None else A_(x_bar)
-            st = (x, s_x, s_xb, y_A,
-                  to_internal_layout(y_D_pub).astype(jnp.dtype(dual_name)))
-            x_bar0 = x_bar
-
-        def step(carry, x_bar, with_loss):
-            x, sAx, sAx_bar, y_A, y_D_int = carry
-            y_A = fidelity_dual_prox(y_A, sAx_bar, b, sigma_A, fidelity,
-                                     fw)
-            y_D_int, dt_local, _l21 = tv_dual(x_bar, y_D_int)
-            at = A_T_(y_A)
-            # pass B: x_new = max(x - tau*(at + D^T y_D'), 0 if nonneg);
-            # the x0 slot only feeds the (discarded) denoising fid partial
-            x_new, _fid = primal(x, x, at, y_D_int, dt_local)
-            x_bar = 2.0 * x_new - x
-            s_new = A_(x_new)
-            carry = (x_new, s_new, 2.0 * s_new - sAx, y_A, y_D_int)
-            if not with_loss:
-                return carry, x_bar, None
-            _norms, tv_parts = tv_norms(x_new)
-            loss = (fidelity_loss(s_new, b, fidelity, fw)
-                    + reg * _sum_parts(tv_parts))
-            return carry, x_bar, loss
-
-        if loss_every == 1:
-            def body(cb, _):
-                c, xb = cb
-                c, xb, loss = step(c, xb, True)
-                return (c, xb), loss
-
-            (final, x_bar_f), losses = jax.lax.scan(
-                body, (st, x_bar0), length=n_iter)
-        else:
-            # loss sampled once per chunk (TGV convention): skips the
-            # (cheap, since the linearity rewrite) TV value + fidelity sum
-            def chunk(cb, _):
-                def inner(i, cb):
-                    c, xb, _ = step(cb[0], cb[1], False)
-                    return (c, xb)
-
-                c, xb = jax.lax.fori_loop(0, loss_every - 1, inner, cb)
-                c, xb, loss = step(c, xb, True)
-                return (c, xb), loss
-
-            (final, x_bar_f), losses = jax.lax.scan(
-                chunk, (st, x_bar0), length=n_iter // loss_every)
-        x, sAx, sAxb, y_A, y_D_int = final
-        return (x, x_bar_f, y_A, y_D_int, sAx, sAxb), losses
-
-    return run
 
 
 @functools.lru_cache(maxsize=32)
 def _make_inverse_run(A, A_T, vol_shape, cfg, precond, fidelity, nonneg,
                       n_iter, dtype_name, Nd, fresh, loss_every=1,
-                      has_sums=False):
+                      has_sums=False, dual_dtype_name=None):
     """One jitted CP executable per (operator, config) — ``reg``, the step
     scalars and the fidelity weight are TRACED arguments, so a reg sweep
     (``reg_discrepancy``) or changed step sizes reuse the same compiled
-    program instead of paying a TPU recompile per value.  ``fresh=True``
+    program instead of paying a recompile per value.  ``fresh=True``
     takes just the initial volume and allocates the zero duals INSIDE jit
-    (no transient second dual-sized buffer in HBM)."""
-    from .cp import dual_prox
+    (no transient second dual-sized buffer in device memory).
+    ``dual_dtype_name`` is y_D's storage dtype between iterations; the TV
+    half of each iteration computes in at least float32."""
+    from .cp import dual_prox, store_dual
     from .fidelity import fidelity_dual_prox, fidelity_loss
 
     dtype = jnp.dtype(dtype_name)
+    dual_dtype = jnp.dtype(dual_dtype_name or dtype_name)
+    compute = jnp.promote_types(dtype, jnp.float32)
     kw = cfg.kwargs()
     proto = _operator_proto(A)
 
@@ -601,31 +448,36 @@ def _make_inverse_run(A, A_T, vol_shape, cfg, precond, fidelity, nonneg,
         else:
             sig, tau_m, sig_A = sigma, tau, sigma_A
 
-        # linearity rewrite (see the fused run): A(x_bar) = 2 A(x_new) -
-        # A(x) from carried sinogram images — one forward + one adjoint
-        # per iteration, the loss reuses the same A(x_new)
+        # A is LINEAR (a CP requirement), so the over-relaxed projection
+        # A(x_bar) = A(2 x_new - x) = 2 A(x_new) - A(x) comes from carried
+        # sinogram images of the iterates — one forward + one adjoint per
+        # iteration, and the loss reuses the same A(x_new)
         if fresh:
             x0 = init
             s0 = A_(x0)
             st = (x0, s0, s0, jnp.zeros_like(b),
                   jnp.zeros((vol_shape[0], Nd, vol_shape[1])
-                            + tuple(vol_shape[2:]), dtype))
+                            + tuple(vol_shape[2:]), dual_dtype))
             x_bar0 = x0
         else:
             x, x_bar, y_A, y_D = tuple(init)[:4]
             s_x = init.s_x if init.s_x is not None else A_(x)
             s_xb = init.s_x_bar if init.s_x_bar is not None else A_(x_bar)
-            st = (x, s_x, s_xb, y_A, y_D)
+            st = (x, s_x, s_xb, y_A, y_D.astype(dual_dtype))
             x_bar0 = x_bar
 
         def step(carry, x_bar, with_loss):
             x, sAx, sAx_bar, y_A, y_D = carry
             y_A = fidelity_dual_prox(y_A, sAx_bar, b, sig_A, fidelity, fw)
-            p = y_D + sig * D(x_bar, cfg.scheme, **kw)
-            y_D = dual_prox(p, reg, cfg.norm, sig, cfg.huber_delta)
-            x_new = x - tau_m * (A_T_(y_A) + D_T(y_D, cfg.scheme, **kw))
+            p = y_D.astype(compute) + sig * D(x_bar.astype(compute),
+                                              cfg.scheme, **kw)
+            y_D = store_dual(dual_prox(p, reg, cfg.norm, sig,
+                                       cfg.huber_delta), dual_dtype)
+            x_new = x - tau_m * (A_T_(y_A)
+                                 + D_T(y_D.astype(compute), cfg.scheme, **kw))
             if nonneg:
                 x_new = jnp.maximum(x_new, 0.0)
+            x_new = x_new.astype(dtype)
             x_bar = 2.0 * x_new - x
             s_new = A_(x_new)
             carry = (x_new, s_new, 2.0 * s_new - sAx, y_A, y_D)
@@ -696,9 +548,8 @@ def reg_discrepancy(
         kw = dict(kw, A_T=A_T,
                   op_norm=float(power_iteration(A, A_T, vol_shape,
                                                 dtype=b.dtype)))
-    # the jnp run keeps reg a TRACED argument — one executable for the
-    # whole sweep; the fused kernels would recompile per bisection value
-    kw.setdefault("fused", False)
+    # reg stays a TRACED argument of the run — one executable for the
+    # whole sweep
     state = None
 
     def solve(reg):

@@ -11,9 +11,7 @@ are unordered and may print slightly out of step with the device).
 
 from __future__ import annotations
 
-import functools
 import sys
-import warnings
 
 import jax
 
@@ -23,44 +21,9 @@ def default_progress(i, loss):
           file=sys.stderr, flush=True)
 
 
-@functools.lru_cache(maxsize=None)
-def callbacks_supported() -> bool:
-    """Whether the default backend supports host callbacks.  Real CPU/TPU
-    backends do; tunneled/proxy PJRT backends may not (e.g. 'does not
-    support host send/recv callbacks') — probe once with a trivial jitted
-    callback rather than hardcoding backend names."""
-    # emit_progress runs during the solver's trace.  In the tracing thread a
-    # nested jit would be staged symbolically (never raising), and
-    # ensure_compile_time_eval would evaluate the callback EAGERLY on the
-    # host (never touching the backend) — both false positives.  Trace state
-    # is thread-local, so a fresh thread gives a genuine compiled execution.
-    result = {}
-
-    def probe():
-        try:
-            jax.jit(lambda: jax.debug.callback(lambda: None))()
-            jax.effects_barrier()
-            result["ok"] = True
-        except Exception:
-            result["ok"] = False
-
-    import threading
-
-    t = threading.Thread(target=probe)
-    t.start()
-    t.join()
-    return result.get("ok", False)
-
-
 def emit_progress(i, loss, progress_every: int, progress_fn=None):
     """Call inside a scan body with the iteration index and loss scalar."""
     if not progress_every:
-        return
-    if not callbacks_supported():
-        warnings.warn(
-            "progress_every requested but this JAX backend does not support "
-            "host callbacks; progress reporting is disabled (the loss "
-            "history is still returned)", stacklevel=2)
         return
     fn = progress_fn or default_progress
     jax.lax.cond(

@@ -30,7 +30,6 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 class TGVState(NamedTuple):
@@ -199,67 +198,6 @@ def _tgv_norm_val(v, norm, delta):
     return jnp.sum(n)
 
 
-def _select_path(shape, dtype, axes, n_iter, compute_loss, fused,
-                 loss_every, has_state, multi_device):
-    """Kernel-path dispatch (outside jit, so it can see the CONCRETE input
-    sharding): 'resident' (slice-whole-solve, 2d), 'stream' (two-pass,
-    coupled modes / big slices) or 'jnp'.  Multi-device (GSPMD-sharded)
-    inputs always take the jnp path — the Pallas kernels are
-    sharding-unaware; use parallel.tgv_denoise_sharded /
-    make_sharded_tgv_stream_solver for kernel-speed sharded solves."""
-    if fused is False:
-        return "jnp"
-    from ..kernels.tgv_resident import tgv_resident_fits
-    from ..kernels.tgv_stream import choose_tile_rows, stream_fits
-
-    if multi_device:
-        if fused:
-            raise ValueError(
-                "fused=True on a multi-device-sharded input: the Pallas TGV "
-                "kernels are sharding-unaware — use parallel."
-                "tgv_denoise_sharded (2d) or parallel."
-                "make_sharded_tgv_stream_solver (3d/4d), or fused=False for "
-                "the GSPMD jnp path"
-            )
-        return "jnp"
-
-    # the resident whole-solve kernel has no state passthrough and cannot
-    # sample the loss
-    resident_ok = (axes == "2d" and not loss_every and not has_state and
-                   tgv_resident_fits(shape, dtype, n_iter, compute_loss))
-    tileable = choose_tile_rows(shape, axes) is not None
-    stream_possible = ((not compute_loss or bool(loss_every))
-                       and tileable
-                       and (fused or stream_fits(shape, axes, dtype)))
-    if fused is None:
-        # auto: kernels on TPU only (off-TPU they would run the slow
-        # Pallas interpreter; tests opt in with fused=True)
-        if jax.default_backend() != "tpu":
-            return "jnp"
-        return ("resident" if resident_ok
-                else "stream" if stream_possible else "jnp")
-    # fused=True: force a kernel path where one can serve
-    if resident_ok or (axes == "2d" and not loss_every and not has_state
-                       and (compute_loss or not tileable)):
-        path = "resident"
-    elif stream_possible:
-        path = "stream"
-    elif has_state:
-        # documented: a resumed call continues on the stream kernel or the
-        # jnp scan — here only jnp can serve (per-iteration loss and/or
-        # untileable rows)
-        path = "jnp"
-    else:
-        raise ValueError(
-            "fused=True cannot serve this combination: the streaming TGV "
-            "kernel (kernels/tgv_stream.py, the only fused path for "
-            "axes='3d'/'4d' and resumed 2d solves) needs "
-            "compute_loss=False or loss_every=k, and N_row a multiple of 8 "
-            "with a VMEM-tileable shape"
-        )
-    return path
-
-
 def tgv_denoise(
     x_noisy,
     n_iter: int = 300,
@@ -268,7 +206,6 @@ def tgv_denoise(
     sigma_tau_split: float = 1.0,
     axes: str = "2d",
     compute_loss: bool = True,
-    fused: bool = None,
     loss_every: int = 0,
     state: TGVState = None,
     norm: str = "iso",
@@ -292,24 +229,11 @@ def tgv_denoise(
     an extra ``D`` + ``E`` application per step); ``loss`` then comes back
     empty, shape ``(0,)``.  ``loss_every=k`` (k > 0, must divide
     ``n_iter``) instead SAMPLES the objective after every k-th iteration —
-    ``loss`` has shape ``(n_iter // k,)`` — amortizing its cost to 1/k;
-    this is also the only way to get a loss series out of the streaming
-    kernel path, which cannot fuse the loss.
-
-    ``fused=None`` auto-selects a Pallas path on TPU: for ``axes='2d'``
-    the slice-resident whole-solve kernel (kernels/tgv_resident.py —
-    slices are independent subproblems, zero per-iteration HBM traffic)
-    when one slice's state fits VMEM; otherwise, and for the coupled
-    ``'3d'``/``'4d'`` modes, the streaming two-pass kernel
-    (kernels/tgv_stream.py) when ``compute_loss=False``.  ``fused=False``
-    forces the jnp scan; ``fused=True`` forces a kernel path (interpreter
-    off-TPU — used by the parity tests).
+    ``loss`` has shape ``(n_iter // k,)`` — amortizing its cost to 1/k.
 
     ``state`` resumes a previous run from ``result.state`` (full CP state:
     x, x_bar, w, w_bar, p, q) — composes with ``run_until_converged`` and
-    ``solvers.state`` checkpointing.  A resumed call never uses the
-    slice-resident whole-solve kernel (no state passthrough there); it
-    continues on the streaming kernel or the jnp scan.
+    ``solvers.state`` checkpointing.
 
     Input must be the canonical 4D ``(Nz, M, N_row, N_col)`` volume
     (``models.TVDenoiser.tgv`` accepts 2D/3D and restores the rank)."""
@@ -327,33 +251,24 @@ def tgv_denoise(
                 f"loss_every must be a positive divisor of n_iter, got "
                 f"loss_every={loss_every} with n_iter={n_iter}"
             )
-    try:
-        sharding = getattr(x_noisy, "sharding", None)
-        multi_device = sharding is not None and len(sharding.device_set) > 1
-    except Exception:  # tracers (e.g. inside shard_map) have no sharding
-        multi_device = False
-    shape = tuple(np.shape(x_noisy))
-    dt = getattr(x_noisy, "dtype", None) or np.asarray(x_noisy).dtype
-    path = _select_path(shape, dt, axes, n_iter, compute_loss, fused,
-                        loss_every, state is not None, multi_device)
     if norm not in ("iso", "aniso", "huber"):
         raise ValueError(f"norm must be 'iso', 'aniso' or 'huber', got "
                          f"{norm!r}")
     return _tgv_denoise_impl(
         x_noisy, state, n_iter=n_iter, alpha1=alpha1, alpha0=alpha0,
         sigma_tau_split=sigma_tau_split, axes=axes,
-        compute_loss=compute_loss, loss_every=loss_every, path=path,
+        compute_loss=compute_loss, loss_every=loss_every,
         norm=norm, huber_delta=huber_delta,
     )
 
 
 @functools.partial(
     jax.jit, static_argnames=("n_iter", "alpha1", "alpha0", "sigma_tau_split",
-                              "axes", "compute_loss", "loss_every", "path",
+                              "axes", "compute_loss", "loss_every",
                               "norm", "huber_delta")
 )
 def _tgv_denoise_impl(x_noisy, state, *, n_iter, alpha1, alpha0,
-                      sigma_tau_split, axes, compute_loss, loss_every, path,
+                      sigma_tau_split, axes, compute_loss, loss_every,
                       norm="iso", huber_delta=1.0):
     x0 = jnp.asarray(x_noisy)
     if x0.ndim != 4:
@@ -363,78 +278,6 @@ def _tgv_denoise_impl(x_noisy, state, *, n_iter, alpha1, alpha0,
             f"2D/3D inputs"
         )
     dtype = x0.dtype
-
-    if path == "resident":
-        from ..kernels.dispatch import default_interpret
-        from ..kernels.tgv_resident import make_resident_tgv_solver
-
-        solve = make_resident_tgv_solver(
-            tuple(x0.shape), n_iter, alpha1, alpha0, sigma_tau_split,
-            dtype_name=jnp.dtype(dtype).name, compute_loss=compute_loss,
-            interpret=default_interpret(), norm=norm,
-            huber_delta=huber_delta,
-        )
-        x, w, xb, wb, pf, qf, losses = solve(x0)
-        st = TGVState(x=x, xb=xb, w=w, wb=wb, p=pf, q=qf)
-        return TGVResult(x=x, w=w, loss=losses, state=st)
-
-    if path == "stream":
-        from ..kernels.dispatch import default_interpret
-        from ..kernels.tgv_stream import from_internal, make_tgv_stream_step
-
-        step = make_tgv_stream_step(
-            tuple(x0.shape), axes, alpha1, alpha0, sigma_tau_split,
-            dtype_name=jnp.dtype(dtype).name, interpret=default_interpret(),
-            norm=norm, huber_delta=huber_delta,
-        )
-        from ..kernels.tgv_stream import to_internal
-
-        n_w = TGV_FIELDS[axes]
-        n_q = n_w * (n_w + 1) // 2
-        Nz, M, Nr, Nc = x0.shape
-        if state is None:
-            w0 = jnp.zeros((Nz, M, n_w, Nr, Nc), dtype)
-            q0 = jnp.zeros((Nz, M, n_q, Nr, Nc), dtype)
-            init = (x0, x0, w0, w0, w0, q0)
-        else:
-            init = (state.x, state.xb, to_internal(state.w),
-                    to_internal(state.wb), to_internal(state.p),
-                    to_internal(state.q))
-
-        def _result(carry, losses):
-            x, xb, w, wb, p, q = carry
-            st = TGVState(x=x, xb=xb, w=from_internal(w),
-                          wb=from_internal(wb), p=from_internal(p),
-                          q=from_internal(q))
-            return TGVResult(x=x, w=st.w, loss=losses, state=st)
-
-        if loss_every:
-            d_fwd, sym_grad, *_ = _tgv_ops(axes, tuple(x0.shape), dtype)
-            a1 = jnp.asarray(alpha1, dtype)
-            a0 = jnp.asarray(alpha0, dtype)
-
-            def chunk(carry, _):
-                carry = jax.lax.fori_loop(
-                    0, loss_every, lambda i, c: step(*c, x0), carry)
-                xc, _, wc, _, _, _ = carry
-                wpub = from_internal(wc)
-                loss = (0.5 * jnp.sum(jnp.square(xc - x0))
-                        + a1 * _tgv_norm_val(d_fwd(xc) - wpub, norm,
-                                             huber_delta)
-                        + a0 * _tgv_norm_val(sym_grad(wpub), norm,
-                                             huber_delta))
-                return carry, loss
-
-            carry, losses = jax.lax.scan(
-                chunk, init, length=n_iter // loss_every
-            )
-            return _result(carry, losses)
-
-        def body(carry, _):
-            return step(*carry, x0), None
-
-        carry, _ = jax.lax.scan(body, init, length=n_iter)
-        return _result(carry, jnp.zeros((0,), dtype))
 
     d_fwd, sym_grad, d_T, sym_T, n_w, n_q, L_sq = _tgv_ops(
         axes, tuple(x0.shape), dtype)
@@ -518,9 +361,6 @@ TGV_NORM_BOUND_SQ = {
     "3d": 24.0,
     "4d": 32.0,
 }
-
-# number of w-fields per mode; E has n(n+1)/2 channels
-TGV_FIELDS = {"2d": 2, "3d": 3, "4d": 4}
 
 
 def _tgv_ops(axes: str, vol_shape, dtype):
@@ -849,7 +689,7 @@ def _make_tgv_inverse_run(A, A_T, vol_shape, axes, precond, norm,
             T_x = T_w = jnp.asarray(tau, dtype)
         if fresh:
             # zero duals/fields allocated INSIDE jit: no transient second
-            # state-sized buffer in HBM for large fresh runs
+            # state-sized buffer in device memory for large fresh runs
             x0 = init
             s0 = A_(x0)
             w0 = jnp.zeros((Nz, n_w, M, Nr, Nc), dtype)

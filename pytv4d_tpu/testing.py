@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import tv_CPU, tv_operators_CPU, tv_operators_TPU, tv_TPU
+from . import tv_CPU, tv_GPU, tv_operators_CPU, tv_operators_GPU
 
 _SCHEMES = ("upwind", "downwind", "hybrid", "central")
 
@@ -21,7 +21,7 @@ _SCHEMES = ("upwind", "downwind", "hybrid", "central")
 def _backend(name):
     if name == "cpu":
         return tv_operators_CPU, tv_CPU
-    return tv_operators_TPU, tv_TPU
+    return tv_operators_GPU, tv_GPU
 
 
 def test_equal(arr1, arr2, tol=1e-5, name=""):
@@ -118,15 +118,15 @@ def test_cross_implementation(scheme, tol=1e-5, shape=(6, 3, 24, 24), reg_t=0.3)
     rng = np.random.default_rng(42)
     img = rng.random(shape)
     tv_c, G_c = getattr(tv_CPU, f"tv_{scheme}")(img, reg_time=reg_t)
-    tv_t, G_t = getattr(tv_TPU, f"tv_{scheme}")(img, reg_time=reg_t)
+    tv_t, G_t = getattr(tv_GPU, f"tv_{scheme}")(img, reg_time=reg_t)
     assert abs(tv_c - tv_t) / abs(tv_c) < tol
     test_equal(G_c, G_t, tol, f"G {scheme}")
 
     D_c = getattr(tv_operators_CPU, f"D_{scheme}")(img, reg_time=reg_t)
-    D_t = getattr(tv_operators_TPU, f"D_{scheme}")(img, reg_time=reg_t)
+    D_t = getattr(tv_operators_GPU, f"D_{scheme}")(img, reg_time=reg_t)
     test_equal(D_c, D_t, tol, f"D {scheme}")
     DT_c = getattr(tv_operators_CPU, f"D_T_{scheme}")(D_c, reg_time=reg_t)
-    DT_t = getattr(tv_operators_TPU, f"D_T_{scheme}")(D_t, reg_time=reg_t)
+    DT_t = getattr(tv_operators_GPU, f"D_T_{scheme}")(D_t, reg_time=reg_t)
     test_equal(DT_c, DT_t, tol, f"D_T D {scheme}")
     print(f"\t[PASS] cross-implementation equality {scheme}")
 
@@ -142,21 +142,18 @@ def run_CPU_tests():
     return True
 
 
-def run_TPU_tests():
+def run_GPU_tests():
     """Device-backend battery + cross-implementation checks
-    (``pytv/tests.py:71-86``)."""
+    (``pytv/tests.py:71-86``) on JAX's default device."""
     print("Running device (jax) tests:")
     for scheme in _SCHEMES:
-        test_operator_transpose(scheme, "tpu")
-        test_2D_to_3D(scheme, "tpu")
+        test_operator_transpose(scheme, "gpu")
+        test_2D_to_3D(scheme, "gpu")
         test_cross_implementation(scheme, tol=1e-4)
     print("All device tests passed.")
     return True
 
 
-# Reference name for drop-in users (``pytv/__init__.py:60``).
-run_GPU_tests = run_TPU_tests
-
 if __name__ == "__main__":
     run_CPU_tests()
-    run_TPU_tests()
+    run_GPU_tests()

@@ -5,7 +5,6 @@ framework's implementation lives in :mod:`pytv4d_tpu.testing`."""
 from .testing import (  # noqa: F401
     run_CPU_tests,
     run_GPU_tests,
-    run_TPU_tests,
     test_2D_to_3D,
     test_cross_implementation,
     test_equal,

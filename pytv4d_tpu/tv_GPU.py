@@ -1,4 +1,4 @@
-"""Accelerator TV module — the TPU-native replacement for ``pytv.tv_GPU``
+"""Accelerator TV module — the jit-compiled replacement for ``pytv.tv_GPU``
 (``pytv/tv_GPU.py:47-376``).
 
 Returns ``(tv, G[, grad_norms])``; host numpy by default (reference behavior,
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .ops import api as _api
-from .tv_operators_TPU import _want_device
+from .tv_operators_GPU import _want_device
 
 __all__ = ["tv_upwind", "tv_downwind", "tv_central", "tv_hybrid"]
 

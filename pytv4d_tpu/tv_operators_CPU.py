@@ -3,7 +3,7 @@
 Pure-NumPy float64 execution of the shared operator core — bit-exact against
 the reference CPU path (``pytv/tv_operators_CPU.py:45-658``; reproduces
 ``README.md:91``'s ``tv_hybrid`` value 532166.8251801673 exactly).  Use the
-device-native API (``pytv4d_tpu.ops.api`` / ``tv_TPU``) for performance.
+device-native API (``pytv4d_tpu.ops.api`` / ``tv_GPU``) for performance.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Accelerator operator module — the TPU-native replacement for
+"""Accelerator operator module — the jit-compiled replacement for
 ``pytv.tv_operators_GPU`` (``pytv/tv_operators_GPU.py:46-1052``).
 
 Differences from the reference, by design (SURVEY.md sections 2.5, 3.2):

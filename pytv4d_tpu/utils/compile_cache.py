@@ -1,17 +1,19 @@
 """Persistent-compilation-cache ergonomics.
 
-XLA compiles of the fused 4D solvers take tens of seconds to minutes per new
-program shape on TPU (the reference has no compile step at all —
-``pytv/tv_operators_CPU.py`` is eager NumPy — so this is the one usability
-cost the TPU build adds).  The JAX persistent cache amortizes it to a ~10 s
-disk load on every later process, including across machines when the cache
-dir is on shared storage.
+XLA compiles of the 4D solvers and CT projectors take seconds to minutes
+per new program shape (the reference has no compile step at all —
+``pytv/tv_operators_CPU.py`` is eager NumPy).  JAX's persistent cache
+turns a later process's compile into a disk load.
 
 Usage (once, before the first jit)::
 
     from pytv4d_tpu.utils import enable_compile_cache
-    enable_compile_cache()                 # ~/.cache/pytv4d_tpu/jax_cache
-    enable_compile_cache("/mnt/shared/jc") # pod-shared cache
+    enable_compile_cache()
+
+The cache lives where ``JAX_COMPILATION_CACHE_DIR`` says when it is set,
+and otherwise in the fixed directory ``.jax_cache`` at the root of this
+checkout (listed in ``.gitignore``): a directory that moves between runs
+never hits.
 
 ``warm_compile`` pre-lowers a solver for a shape so first real use is
 instant (e.g. in a deploy step or a container build).
@@ -20,24 +22,26 @@ instant (e.g. in a deploy step or a container build).
 from __future__ import annotations
 
 import os
-from typing import Optional
 
 import jax
 
+CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
-def enable_compile_cache(path: Optional[str] = None,
-                         min_compile_time_secs: float = 1.0) -> str:
-    """Point JAX's persistent compilation cache at ``path`` (created if
-    missing; default ``~/.cache/pytv4d_tpu/jax_cache`` or
-    ``$PYTV4D_COMPILE_CACHE``).  Programs whose compile took longer than
-    ``min_compile_time_secs`` are cached; returns the resolved path."""
-    if path is None:
-        path = os.environ.get(
-            "PYTV4D_COMPILE_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache", "pytv4d_tpu",
-                         "jax_cache"),
-        )
-    path = os.path.abspath(os.path.expanduser(path))
+
+def cache_dir() -> str:
+    """The directory the persistent cache uses: ``$JAX_COMPILATION_CACHE_DIR``
+    when set, else ``<checkout>/.jax_cache``."""
+    return os.environ.get(CACHE_ENV) or REPO_CACHE_DIR
+
+
+def enable_compile_cache(min_compile_time_secs: float = 1.0) -> str:
+    """Turn on JAX's persistent compilation cache in :func:`cache_dir`.
+    Programs whose compile took longer than ``min_compile_time_secs`` are
+    cached; returns the directory."""
+    path = cache_dir()
     os.makedirs(path, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",

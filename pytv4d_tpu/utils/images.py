@@ -71,6 +71,31 @@ def synthetic_phantom(n: int = 256, seed: int = 0) -> np.ndarray:
     return np.clip(img, 7, 253).astype(np.int64)
 
 
+def blob_phantom(vol_shape, n_blobs: int = 6, seed: int = 0) -> np.ndarray:
+    """A float32 ``(Nz, M, N, N)`` volume of ``n_blobs`` Gaussian blobs
+    (peak ~1) that lies inside a cone beam's field of view: centres in the
+    middle half of the plane and at least 3 slices from the slab's ends
+    (mid-slab in a slab thinner than 6),
+    in-plane widths N/26..N/8.5, axial width 3 slices.  Frame ``m`` is
+    frame 0 scaled by ``1 - 0.1 m`` so the time axis carries signal."""
+    Nz, M, N, _ = vol_shape
+    z = np.arange(Nz, dtype=np.float32)[:, None, None]
+    r = np.arange(N, dtype=np.float32)[None, :, None]
+    c = np.arange(N, dtype=np.float32)[None, None, :]
+    img = np.zeros((Nz, N, N), np.float32)
+    rng = np.random.default_rng(seed)
+    z_lo = min(3.0, Nz / 2)
+    for _ in range(n_blobs):
+        z0 = rng.uniform(z_lo, max(Nz - 3, z_lo))
+        r0, c0 = rng.uniform(N / 4, 3 * N / 4, size=2)
+        w = rng.uniform(N / 25.6, N / 8.5)
+        img += (np.exp(-((z - z0) / 3.0) ** 2)
+                * np.exp(-((r - r0) / w) ** 2)
+                * np.exp(-((c - c0) / w) ** 2))
+    scale = 1.0 - 0.1 * np.arange(M, dtype=np.float32)
+    return (img[:, None] * scale[None, :, None, None]).astype(np.float32)
+
+
 def as_volume(img2d: np.ndarray, Nz: int = 1, M: int = 1) -> np.ndarray:
     """Tile a 2D image into the canonical ``(Nz, M, N_row, N_col)`` layout."""
     return np.broadcast_to(img2d, (Nz, M) + img2d.shape).copy()

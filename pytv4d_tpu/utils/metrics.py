@@ -5,7 +5,8 @@ normalized_root_mse, peak_signal_noise_ratio, structural_similarity with its
 default uniform 7x7 window, sample covariance and edge crop) so published
 reconstruction-quality numbers are comparable, without a scikit-image
 dependency.  Everything is jnp under the hood: the inputs may live on the
-TPU and the reductions run there; only the final scalar is pulled to host.
+accelerator and the reductions run there; only the final scalar is pulled
+to host.
 
 The reference has no metrics module — examples eyeball plots
 (``/root/reference/examples/a_TV_denoising_2D.ipynb``).  Quality metrics

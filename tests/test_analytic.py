@@ -7,7 +7,7 @@ import math
 import numpy as np
 import pytest
 
-from pytv4d_tpu import tv_CPU, tv_TPU
+from pytv4d_tpu import tv_CPU, tv_GPU
 
 
 @pytest.fixture
@@ -17,7 +17,7 @@ def single_hot():
     return img
 
 
-@pytest.mark.parametrize("tvm", [tv_CPU, tv_TPU], ids=["numpy", "jax"])
+@pytest.mark.parametrize("tvm", [tv_CPU, tv_GPU], ids=["numpy", "jax"])
 def test_analytic_values(single_hot, tvm):
     assert float(tvm.tv_upwind(single_hot)[0]) == pytest.approx(2 + math.sqrt(2), rel=1e-12)
     assert float(tvm.tv_downwind(single_hot)[0]) == pytest.approx(2 + math.sqrt(2), rel=1e-12)

@@ -11,11 +11,12 @@ def _has(mod, names):
 
 
 def test_package_level_compat_surface():
-    _has(ptv, "tv_CPU tv_GPU tv_TPU tv_operators_CPU tv_operators_GPU "
-              "tv_operators_TPU run_CPU_tests run_GPU_tests "
+    _has(ptv, "tv_CPU tv_GPU tv_operators_CPU tv_operators_GPU "
+              "run_CPU_tests run_GPU_tests "
               "tv_hybrid tv_upwind tv_downwind tv_central "
               "D_hybrid D_T_hybrid compute_L21_norm tv_and_subgrad "
-              "cameraman models solvers parallel utils ops core kernels")
+              "cameraman models solvers parallel utils ops core")
+    assert not hasattr(ptv, "kernels")
 
 
 def test_solver_surface():
@@ -50,14 +51,16 @@ def test_parallel_surface():
     _has(ptv.parallel,
          "make_mesh shard_volume volume_sharding d_volume_sharding "
          "sharded_D sharded_D_T sharded_tv_and_subgrad "
-         "make_sharded_cp_solver make_sharded_cp_solver_fused "
-         "make_sharded_gd_solver_fused tgv_denoise_sharded "
-         "make_sharded_tgv_stream_solver internal_d_sharding multihost")
+         "make_sharded_cp_solver tgv_denoise_sharded multihost")
+    for gone in ("make_sharded_cp_solver_fused", "make_sharded_gd_solver_fused",
+                 "make_sharded_tgv_stream_solver", "internal_d_sharding"):
+        assert not hasattr(ptv.parallel, gone)
 
 
 def test_utils_surface():
     _has(ptv.utils,
-         "cameraman synthetic_phantom as_volume has_real_cameraman "
+         "cameraman synthetic_phantom blob_phantom as_volume "
+         "has_real_cameraman "
          "IterationTimer cp_traffic_model tgv_traffic_model "
-         "roofline_fraction trace assert_finite log_run metrics "
-         "enable_compile_cache warm_compile")
+         "roofline_fraction device_peaks trace assert_finite log_run "
+         "metrics enable_compile_cache warm_compile")

@@ -526,23 +526,22 @@ def test_cp_reconstruct_precond_converges_faster():
 
 
 def test_tgv_reconstruct_rejects_unimplemented_options():
-    """fused/dual_dtype/loss_every are in the signature for symmetry with
+    """dual_dtype/loss_every are in the signature for symmetry with
     cp_reconstruct but tgv_inverse does not implement them — explicit
-    arguments must raise, never be silently ignored (ADVICE r3)."""
+    arguments must raise, never be silently ignored."""
     from pytv4d_tpu.models.ct import radon, tgv_reconstruct
 
     truth = jnp.zeros((1, 1, 16, 16))
     angles = jnp.linspace(0, np.pi, 8, endpoint=False)
     sino = radon(truth, angles)
-    for kw in ({"dual_dtype": "bfloat16"}, {"fused": True},
-               {"loss_every": 5}):
+    for kw in ({"dual_dtype": "bfloat16"}, {"loss_every": 5}):
         with pytest.raises(NotImplementedError, match="tgv_reconstruct"):
             tgv_reconstruct(sino, angles, truth.shape, n_iter=5, **kw)
 
 
 def test_projector_cache_lru_and_clear():
     """make_projector memoization: hits refresh recency (LRU, not FIFO —
-    a hot geometry must survive a sweep of one-off ones, ADVICE r3), and
+    a hot geometry must survive a sweep of one-off ones), and
     clear_projector_cache releases everything."""
     from pytv4d_tpu.models import ct as ct_mod
     from pytv4d_tpu.models.ct import clear_projector_cache, make_projector

@@ -4,9 +4,7 @@ Oracles: analytic Gaussian line integrals (the Radon transform of a
 Gaussian is a Gaussian — an implementation-independent ground truth),
 parity with the bilinear gather radon at the gather path's own O(h^2)
 accuracy, the adjointness dot test, and a hard structural guarantee that
-the lowered forward AND adjoint programs contain no gather/scatter HLO
-(the failure mode that crashed the TPU worker at production sizes —
-VERDICT r2 item 1)."""
+the lowered forward AND adjoint programs contain no gather/scatter HLO."""
 
 import jax
 import jax.numpy as jnp
@@ -111,7 +109,7 @@ def test_spectral_adjointness_and_linearity():
 def test_spectral_hlo_has_no_gather_or_scatter():
     """The whole point: forward and adjoint lower to FFT + matmul +
     elementwise only.  jnp.take-style reordering or map_coordinates
-    would reintroduce the op class that crashed the TPU worker."""
+    would reintroduce a gather."""
     rng = np.random.default_rng(0)
     vol = jnp.asarray(rng.random((2, 2, 32, 32)), jnp.float32)
     # deliberately interleaved regimes so the un-permutation path runs
@@ -479,64 +477,20 @@ def test_operator_protocol_reconstruction_matches_lazy():
                                np.asarray(res_l.loss), rtol=1e-5)
 
 
-def test_matmul_dft_matches_fft_path(monkeypatch):
-    """The MXU matmul DFT (the accelerator default, ``_DFT_MODE``) agrees
-    with the rfft path to f32 round-off, and exactly (1e-14) in f64 — the
-    exact-phase table (integer mod-Np reduction) is what makes the f64
-    agreement possible at all."""
-    from pytv4d_tpu.models import ct_spectral as cs
-
-    rng = np.random.default_rng(0)
-    angles = np.linspace(0.0, np.pi, 24, endpoint=False)
-    vol = jnp.asarray(rng.random((2, 2, 64, 64)), jnp.float32)
-    monkeypatch.setattr(cs, "_DFT_MODE", "fft")
-    p_fft = np.asarray(radon_spectral(vol, angles))
-    monkeypatch.setattr(cs, "_DFT_MODE", "matmul")
-    p_mm = np.asarray(radon_spectral(vol, angles))
-    assert np.linalg.norm(p_mm - p_fft) / np.linalg.norm(p_fft) < 5e-6
-
-    vol64 = jnp.asarray(rng.random((1, 1, 32, 32)), jnp.float64)
-    monkeypatch.setattr(cs, "_DFT_MODE", "fft")
-    p_fft = np.asarray(radon_spectral(vol64, angles))
-    monkeypatch.setattr(cs, "_DFT_MODE", "matmul")
-    p_mm = np.asarray(radon_spectral(vol64, angles))
-    assert np.linalg.norm(p_mm - p_fft) / np.linalg.norm(p_fft) < 1e-13
-
-
-def test_dft_tables_match_rfft_matrix():
-    """``_dft_tables`` reproduce the exact rfft: X @ (Wr + i Wi) ==
-    np.fft.rfft(X, n=Np) in f64, including the large-c*k corner where a
-    naive f32 phase product would be ~1e-2 rad wrong."""
-    from pytv4d_tpu.models.ct_spectral import _dft_tables
-
-    N, Np = 64, 128
-    Wr, Wi = _dft_tables(N, Np, jnp.float64)
-    rng = np.random.default_rng(1)
-    X = rng.standard_normal((5, N))
-    F_ref = np.fft.rfft(X, n=Np, axis=-1)
-    F_mm = X @ np.asarray(Wr) + 1j * (X @ np.asarray(Wi))
-    assert np.max(np.abs(F_mm - F_ref)) < 1e-12
-
-
-def test_matmul_dft_adjointness_and_no_gather(monkeypatch):
-    """Adjointness and the gather-free HLO guarantee hold on the matmul
-    DFT path too (its vjp is just the transposed table matmul)."""
-    from pytv4d_tpu.models import ct_spectral as cs
-
-    monkeypatch.setattr(cs, "_DFT_MODE", "matmul")
-    vshape = (2, 2, 32, 32)
-    angles = np.linspace(0.0, np.pi, 12, endpoint=False)
-    A, A_T = make_spectral_projector(vshape, angles)
-    rng = np.random.default_rng(2)
-    x = jnp.asarray(rng.random(vshape), jnp.float32)
-    y = jnp.asarray(rng.random((2, 2, 12, 32)), jnp.float32)
-    lhs = float(jnp.vdot(A(x), y))
-    rhs = float(jnp.vdot(x, A_T(y)))
-    assert abs(lhs - rhs) / abs(lhs) < 1e-5
-    for what, fn, arg in (("fwd", A, x), ("adj", A_T, y)):
-        txt = jax.jit(fn).lower(arg).compile().as_text()
-        assert " gather(" not in txt, f"gather op in {what} HLO"
-        assert " scatter(" not in txt, f"scatter op in {what} HLO"
+@pytest.mark.parametrize("regime", ["vertical", "horizontal", "both"])
+def test_fft_spectrum_f32_matches_f64(regime):
+    """The rfft half-spectrum path in f32 agrees with the same projector
+    in f64 to f32 round-off, in each regime bucket (|sin| >= |cos| takes
+    the column FFT, |cos| > |sin| the row FFT) and across both."""
+    lo, hi = {"vertical": (np.pi / 4, 3 * np.pi / 4),
+              "horizontal": (-np.pi / 4 + 0.01, np.pi / 4 - 0.01),
+              "both": (0.0, np.pi)}[regime]
+    angles = np.linspace(lo, hi, 24, endpoint=False)
+    vol = np.random.default_rng(0).random((2, 2, 64, 64))
+    p32 = np.asarray(radon_spectral(jnp.asarray(vol, jnp.float32), angles))
+    p64 = np.asarray(radon_spectral(jnp.asarray(vol, jnp.float64), angles))
+    assert p32.dtype == np.float32 and p64.dtype == np.float64
+    assert np.linalg.norm(p32 - p64) / np.linalg.norm(p64) < 5e-6
 
 
 def test_projector_precision_kwarg():
@@ -647,13 +601,13 @@ def test_sart_spectral_per_frame_angles():
 
 
 # ---------------------------------------------------------------------------
-# Gather-free cone beam: SSRB + first-order slope correction (round 4;
-# VERDICT r3 item 2).  Reference: the exact gather cone (models/ct.py
+# Gather-free cone beam: SSRB + first-order slope correction.
+# Reference: the exact gather cone (models/ct.py
 # radon_cone — trilinear sampling, itself golden-tested vs CPU f64).
 
 
 def test_sart_cone_spectral_matches_plain_loop_reference():
-    """``sart(geom=cone, method='spectral')`` (VERDICT r4 item 6): the
+    """``sart(geom=cone, method='spectral')``: the
     unrolled per-subset spectral-cone SART must equal a plain python-loop
     SART on the same lazy cone projectors to f32 round-off, and its
     residual must drop monotonically."""
@@ -862,7 +816,7 @@ def test_cone_spectral_gather_parity_and_order():
     thin-slab phantom (Nz=8, N=64): SSRB (order=0) error is O(sigma) —
     halving with each doubling of source_dist — and the first-order
     moment correction (order=1, default) roughly halves it again at
-    every geometry.  Values recorded 2026-08 (see docs/performance.md):
+    every geometry.  Values recorded 2026-08:
     o0 5.4%/2.7%/1.4%, o1 2.9%/1.5%/0.9% at D_so = 2N/4N/8N."""
     from pytv4d_tpu.models.ct import ConeBeamGeometry, radon_cone
     from pytv4d_tpu.models.ct_spectral import radon_cone_spectral
@@ -933,7 +887,7 @@ def test_cone_spectral_reconstruction_self_consistent():
     config) — the approximate operator is solver-consistent (exact
     adjoint).  Cross-model recon (gather data, spectral operator) is
     model-mismatch bound — same behavior and magnitude as the shipped
-    fan rebinning path (docs/performance.md records both)."""
+    fan rebinning path."""
     from pytv4d_tpu.models.ct import ConeBeamGeometry, cp_reconstruct
     from pytv4d_tpu.models.ct_spectral import radon_cone_spectral
     from pytv4d_tpu.core.config import TVConfig
@@ -966,7 +920,7 @@ def test_cone_spectral_reconstruction_self_consistent():
 
 @pytest.mark.full
 def test_cone_spectral_precond_converges_and_saves_iterations():
-    """``precond=True`` on the spectral cone (VERDICT r4 item 3): the
+    """``precond=True`` on the spectral cone: the
     abs-factor surrogate sums + the power-method-verified step rescale
     must (a) converge — the SIGNED sums were measured to diverge — and
     (b) reach a LOWER loss than the op_norm-stepped solve at a 200-it
@@ -1036,7 +990,7 @@ def _fdk_smooth_phantom(Nz, M, N):
 
 @pytest.mark.full
 def test_fdk_spectral_parity_envelope():
-    """``fdk(method='spectral')`` (rebinning P-FDK, VERDICT r4 item 2) vs
+    """``fdk(method='spectral')`` (rebinning P-FDK) vs
     the gather FDK on a smooth phantom, f64: the measured envelope is
     1.7%/0.7%/0.6% at D_so = 2N/4N/8N, and the wide-geometry limit equals
     the pure in-plane gather-vs-spectral BACKPROJECTOR family difference
@@ -1088,9 +1042,7 @@ def test_fdk_spectral_parity_envelope():
 def test_fdk_spectral_warm_start_helps():
     """The production purpose of the spectral FDK: used as ``x_init`` for
     ``cp_reconstruct(geom=cone, method='spectral')`` it must cut the
-    iterations needed to reach a fixed accuracy vs a cold start (the
-    gather FDK cannot run at production scale at all —
-    docs/performance.md's compile-OOM ladder)."""
+    iterations needed to reach a fixed accuracy vs a cold start."""
     from pytv4d_tpu.core.config import TVConfig
     from pytv4d_tpu.models.ct import (
         ConeBeamGeometry,
@@ -1273,7 +1225,7 @@ def test_cone_zdft_solver_consistency():
 
 @pytest.mark.full
 def test_cone_zdft_beats_gather_vs_analytic():
-    """The certification claim of the order=2 tier (VERDICT r4 item 1):
+    """The certification claim of the order=2 tier:
     against EXACT analytic cone integrals of 3D Gaussians, the z-DFT
     offset-line operator is MORE accurate than the gather cone at every
     geometry — the reference-style discretization's own trilinear error

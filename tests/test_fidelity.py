@@ -197,18 +197,18 @@ def test_cp_inverse_kl_traces_under_vmap():
 @pytest.mark.parametrize("fidelity,nonneg",
                          [("l1", False), ("kl", True), ("l2", True)])
 def test_denoiser_fused_fidelity_matches_jnp(fidelity, nonneg):
-    """The fused Pallas CP kernels implement the fidelity family too — the
-    fused path must track the jnp path for TV-L1 / Poisson / nonneg."""
+    """The f32 CP denoiser (f32 storage, f32 compute) tracks the f64 solve
+    for TV-L1 / Poisson / nonneg."""
     from pytv4d_tpu.core.config import TVConfig
     from pytv4d_tpu.solvers.cp import chambolle_pock
 
     rng = np.random.default_rng(11)
-    x0 = jnp.asarray(rng.random((2, 2, 16, 128)) + 0.1, jnp.float32)
+    x0 = jnp.asarray(rng.random((2, 2, 16, 128)) + 0.1)
     cfg = TVConfig(scheme="hybrid", reg_time=0.5)
     kw = dict(n_iter=15, reg=0.3, cfg=cfg, fidelity=fidelity,
               fidelity_weight=0.8, nonneg=nonneg)
-    a = chambolle_pock(x0, fused=False, **kw)
-    b = chambolle_pock(x0, fused=True, **kw)
+    a = chambolle_pock(x0, **kw)
+    b = chambolle_pock(x0.astype(jnp.float32), **kw)
     np.testing.assert_allclose(np.asarray(b.loss), np.asarray(a.loss),
                                rtol=1e-4)
     np.testing.assert_allclose(np.asarray(b.x), np.asarray(a.x),
@@ -218,21 +218,21 @@ def test_denoiser_fused_fidelity_matches_jnp(fidelity, nonneg):
 
 
 def test_denoiser_fused_fidelity_with_static_mask():
-    """fidelity='l1' composes with the reference's static-mask feature on
-    the fused path (the t-channel multiplier is orthogonal to the fidelity
-    switch) — fused must track jnp."""
+    """fidelity='l1' composes with the reference's static-mask feature
+    (the t-channel multiplier is orthogonal to the fidelity switch) — the
+    f32 solve tracks the f64 one."""
     from pytv4d_tpu.core.config import TVConfig
     from pytv4d_tpu.solvers.cp import chambolle_pock
 
     rng = np.random.default_rng(13)
-    x0 = jnp.asarray(rng.random((2, 3, 16, 128)), jnp.float32)
+    x0 = jnp.asarray(rng.random((2, 3, 16, 128)))
     mask = np.zeros((1, 1, 16, 128), bool)
     mask[..., 4:10, 30:90] = True
     cfg = TVConfig(scheme="upwind", reg_time=1.0, factor_reg_static=0.5)
     kw = dict(n_iter=12, reg=0.3, cfg=cfg, mask_static=jnp.asarray(mask),
               fidelity="l1", fidelity_weight=1.5)
-    a = chambolle_pock(x0, fused=False, **kw)
-    b = chambolle_pock(x0, fused=True, **kw)
+    a = chambolle_pock(x0, **kw)
+    b = chambolle_pock(x0.astype(jnp.float32), **kw)
     np.testing.assert_allclose(np.asarray(b.loss), np.asarray(a.loss),
                                rtol=1e-4)
     np.testing.assert_allclose(np.asarray(b.x), np.asarray(a.x),
@@ -288,26 +288,17 @@ def test_inverse_runner_cache_shared_across_regs():
     A = lambda v: v
     A_T = lambda v: v
     for reg in (0.1, 0.237, 1.7):
-        # fused=False: the fused kernels bake reg (one executable per
-        # value, by design) — the traced-reg contract is the jnp run's,
-        # and reg_discrepancy pins fused=False for exactly this reason
-        cp_inverse(A, b, b.shape, A_T=A_T, n_iter=2, reg=reg, op_norm=1.0,
-                   fused=False)
+        cp_inverse(A, b, b.shape, A_T=A_T, n_iter=2, reg=reg, op_norm=1.0)
     info = _make_inverse_run.cache_info()
     assert info.misses == 1 and info.hits == 2
 
 
 def test_sharded_fused_cp_fidelity_tracks_unsharded():
-    """fidelity='l1' + nonneg ride the sharded fused CP kernels (pointwise
-    updates — sharding-invariant), tracking the unsharded jnp solver."""
+    """fidelity='l1' + nonneg ride the shard_map CP solver (pointwise
+    updates — sharding-invariant), tracking the unsharded solver."""
     import jax
 
     from pytv4d_tpu.core.config import TVConfig
-    from pytv4d_tpu.kernels.fused import to_internal_layout
-    from pytv4d_tpu.parallel import (
-        internal_d_sharding,
-        make_sharded_cp_solver_fused,
-    )
     from pytv4d_tpu.parallel.mesh import make_mesh, shard_volume
     from pytv4d_tpu.solvers.cp import chambolle_pock, init_state
 
@@ -317,23 +308,9 @@ def test_sharded_fused_cp_fidelity_tracks_unsharded():
     noisy = jnp.asarray(rng.random(shape) + 3.0, jnp.float32)
     mesh = make_mesh(z=4, t=2, devices=jax.devices()[:8])
 
-    ref = chambolle_pock(noisy, n_iter=20, reg=0.4, cfg=cfg, fused=False,
+    ref = chambolle_pock(noisy, n_iter=20, reg=0.4, cfg=cfg,
                          fidelity="l1", nonneg=True)
-    solve = make_sharded_cp_solver_fused(mesh, cfg, shape, reg=0.4,
-                                         n_iter=20, fidelity="l1",
-                                         nonneg=True)
     st = init_state(noisy, cfg)
-    x, _, _, losses = solve(
-        shard_volume(noisy, mesh),
-        shard_volume(st.x, mesh),
-        shard_volume(st.y_A, mesh),
-        jax.device_put(to_internal_layout(st.y_D),
-                       internal_d_sharding(mesh)),
-    )
-    np.testing.assert_allclose(np.asarray(losses), np.asarray(ref.loss),
-                               rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(x), np.asarray(ref.x),
-                               atol=1e-5, rtol=1e-4)
 
     # the jnp shard_map path carries the same family
     from pytv4d_tpu.parallel import d_volume_sharding, make_sharded_cp_solver

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 import pytv4d_tpu as ptv
-from pytv4d_tpu import tv_CPU, tv_operators_CPU, tv_operators_TPU, tv_TPU
+from pytv4d_tpu import tv_CPU, tv_operators_CPU, tv_operators_GPU, tv_GPU
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "golden_small.npz")
 SCHEMES = ("upwind", "downwind", "central", "hybrid")
@@ -37,8 +37,8 @@ def test_operator_parity(golden, scheme, case, backend):
     kw = dict(CASES[case])
     if case == "mask":
         kw["mask_static"] = golden["mask"]
-    ops = tv_operators_CPU if backend == "numpy" else tv_operators_TPU
-    tvm = tv_CPU if backend == "numpy" else tv_TPU
+    ops = tv_operators_CPU if backend == "numpy" else tv_operators_GPU
+    tvm = tv_CPU if backend == "numpy" else tv_GPU
     tol = 1e-12 if backend == "numpy" else 1e-12  # jax path is f64 under x64
 
     key = f"{scheme}_{case}"
@@ -89,8 +89,8 @@ def test_boundary_parity(golden_boundary, scheme, case, backend):
         pytest.skip("reference defect: unrecordable")
     img = golden_boundary[f"img_{case}"]
     kw = dict(BOUNDARY_CASES[case])
-    ops = tv_operators_CPU if backend == "numpy" else tv_operators_TPU
-    tvm = tv_CPU if backend == "numpy" else tv_TPU
+    ops = tv_operators_CPU if backend == "numpy" else tv_operators_GPU
+    tvm = tv_CPU if backend == "numpy" else tv_GPU
     tol = 1e-12
 
     key = f"{scheme}_{case}"

@@ -151,7 +151,7 @@ def test_ssim_closed_form_constants():
 
 
 def test_denoise_tv_chambolle_exact_rof_solution():
-    """Implementation-independent golden oracle (VERDICT r2 item 6): for a
+    """Implementation-independent golden oracle: for a
     two-plateau step image the DISCRETE ROF problem
     min 1/2||u-f||^2 + w*TV_upwind(u) has the closed-form solution
     u = a + w/h on the top plateau and b - w/h on the bottom (each column

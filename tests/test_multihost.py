@@ -84,6 +84,5 @@ def test_two_process_sharded_cp(tmp_path):
         np.random.default_rng(0).random((8, 2, 16, 16)) + 3.0, jnp.float32
     )
     ref = chambolle_pock(noisy, n_iter=10, reg=0.4,
-                         cfg=TVConfig(scheme="hybrid", reg_time=0.5),
-                         fused=False)
+                         cfg=TVConfig(scheme="hybrid", reg_time=0.5))
     np.testing.assert_allclose(losses[0], np.asarray(ref.loss), rtol=1e-5)

@@ -5,7 +5,7 @@ from SURVEY.md section 2.4."""
 import numpy as np
 import pytest
 
-from pytv4d_tpu import tv_CPU, tv_operators_CPU, tv_operators_TPU
+from pytv4d_tpu import tv_CPU, tv_operators_CPU, tv_operators_GPU
 from pytv4d_tpu.core.schemes import num_channels
 
 SCHEMES = ("upwind", "downwind", "central", "hybrid")
@@ -26,7 +26,7 @@ def _adjoint_check(ops, scheme, shape, n=4, tol=1e-10, **kw):
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
-@pytest.mark.parametrize("ops", [tv_operators_CPU, tv_operators_TPU], ids=["numpy", "jax"])
+@pytest.mark.parametrize("ops", [tv_operators_CPU, tv_operators_GPU], ids=["numpy", "jax"])
 @pytest.mark.parametrize(
     "shape,kw",
     [
@@ -89,7 +89,7 @@ def test_dtype_preserved():
     rng = np.random.default_rng(7)
     img32 = rng.random((2, 1, 8, 8)).astype(np.float32)
     assert tv_operators_CPU.D_upwind(img32).dtype == np.float32
-    assert np.asarray(tv_operators_TPU.D_upwind(img32)).dtype == np.float32
+    assert np.asarray(tv_operators_GPU.D_upwind(img32)).dtype == np.float32
 
 
 def test_boundary_slots_are_zero():

@@ -238,18 +238,6 @@ def test_anisotropic_tv_solvers(noisy_small):
     assert manual == pytest.approx(float(cp.loss[-1]), rel=1e-4)
 
 
-def test_aniso_fused_matches_jnp():
-    """The fused CP pass-A aniso branch (box prox + |d| partials) must track
-    the jnp path."""
-    rng = np.random.default_rng(29)
-    x0 = jnp.asarray(rng.random((4, 3, 16, 128)) + 1.0, jnp.float32)
-    cfg = TVConfig(scheme="hybrid", reg_time=0.5, norm="aniso")
-    a = chambolle_pock(x0, n_iter=20, reg=0.3, cfg=cfg, fused=False)
-    b = chambolle_pock(x0, n_iter=20, reg=0.3, cfg=cfg, fused=True)
-    np.testing.assert_allclose(np.asarray(b.loss), np.asarray(a.loss),
-                               rtol=1e-4)
-
-
 def test_aniso_subgradient_definition():
     """Aniso G is the true subgradient D^T sign(D x) (full weights)."""
     from pytv4d_tpu.ops.operators import D, D_T
@@ -328,7 +316,7 @@ def test_4d_solver_trajectory_parity():
 
 def test_progress_callbacks(noisy_small, capsys):
     """progress_every invokes progress_fn(i, loss) from inside the scan on
-    both the jnp and fused paths, and the default printer writes stderr."""
+    the GD and CP solvers, and the default printer writes stderr."""
     import jax
 
     seen = []
@@ -441,7 +429,7 @@ def test_inverse_solvers_state_resume(tmp_path):
     np.testing.assert_array_equal(
         np.concatenate([half.loss, resumed.loss]), np.asarray(cont.loss))
 
-    # PRE-format-change checkpoint compat (ADVICE r3): a state saved
+    # PRE-format-change checkpoint compat: a state saved
     # without the trailing s_x/s_x_bar leaves must still load against the
     # 6-leaf template — padded with None, which the solver accepts
     from pytv4d_tpu.solvers.inverse import InverseState
@@ -606,38 +594,6 @@ def test_tgv_compute_loss_false_same_iterates():
         assert lean.loss.shape == (0,)
 
 
-def test_tgv_fused_resident_parity():
-    """The slice-resident Pallas TGV kernel (kernels/tgv_resident.py,
-    interpreter mode here) matches the jnp scan to fp round-off — same
-    algebra by construction, gridded per (z, t) slice."""
-    import jax.numpy as jnp
-
-    from pytv4d_tpu.solvers.tgv import tgv_denoise
-
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.random((2, 2, 12, 20)))
-
-    ref = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0, fused=False)
-    fus = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0, fused=True)
-    np.testing.assert_allclose(np.asarray(fus.x), np.asarray(ref.x),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(fus.w), np.asarray(ref.w),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(fus.loss), np.asarray(ref.loss),
-                               rtol=1e-10)
-
-    lean = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0, fused=True,
-                       compute_loss=False)
-    np.testing.assert_allclose(np.asarray(lean.x), np.asarray(fus.x),
-                               rtol=1e-12, atol=1e-12)
-    assert lean.loss.shape == (0,)
-
-    # fused=True for a coupled mode uses the streaming kernel, which cannot
-    # produce the loss history
-    with pytest.raises(ValueError, match="compute_loss=False"):
-        tgv_denoise(x, n_iter=5, axes="3d", fused=True)
-
-
 def test_tgv_denoise_3d_axes():
     """Volumetric TGV (``axes='3d'``): the 6-channel symmetrized Jacobian's
     exact adjoint, convergence, and the z-coupling experiment — on a volume
@@ -739,12 +695,11 @@ def test_tgv_denoise_4d_axes():
 def test_huber_tv_norm_family():
     """Huber-smoothed TV: value matches the closed form, the gradient is the
     TRUE gradient (checked vs jax.grad), delta->0 recovers isotropic TV,
-    and CP/GD/ADMM all support it (FISTA and the fused kernels gate)."""
+    and CP/GD/ADMM all support it (FISTA gates)."""
     import jax
     import jax.numpy as jnp
 
     from pytv4d_tpu.core.config import TVConfig
-    from pytv4d_tpu.kernels.dispatch import can_fuse
     from pytv4d_tpu.ops.operators import D, compute_huber_norm
     from pytv4d_tpu.ops.tv import tv_and_subgrad
     from pytv4d_tpu.solvers.fista import fista
@@ -789,24 +744,25 @@ def test_huber_tv_norm_family():
     # tiny delta tracks the isotropic CP solve
     cfg_t = TVConfig(scheme="hybrid", norm="huber", huber_delta=1e-5)
     cp_iso = chambolle_pock(noisy, n_iter=150, reg=2.0,
-                            cfg=TVConfig(scheme="hybrid"), fused=False)
+                            cfg=TVConfig(scheme="hybrid"))
     cp_tiny = chambolle_pock(noisy, n_iter=150, reg=2.0, cfg=cfg_t)
     assert float(cp_tiny.loss[-1]) == pytest.approx(float(cp_iso.loss[-1]),
                                                     rel=1e-4)
 
-    # both kernel families fuse huber: the CP conjugate prox AND the GD
-    # norms/G kernels (tests/test_kernels.py::test_tv_subgrad_fused_huber)
-    assert can_fuse((4, 2, 16, 16), cfg)
-    assert can_fuse((4, 2, 16, 16), cfg, for_gd=True)
     with pytest.raises(ValueError, match="Huber"):
         fista(noisy, cfg=cfg)
-    # the sharded fused GD factory accepts huber now (end-to-end parity in
+    # the shard_map tv/subgradient serves huber (end-to-end parity in
     # tests/test_sharding.py::test_sharded_huber_gd_paths)
-    from pytv4d_tpu.parallel import make_sharded_gd_solver_fused
+    from pytv4d_tpu.parallel import sharded_tv_and_subgrad
     from pytv4d_tpu.parallel.mesh import make_mesh
-    make_sharded_gd_solver_fused(make_mesh(z=1, t=1,
-                                           devices=jax.devices()[:1]),
-                                 cfg, (4, 2, 16, 16), reg=1.0, n_iter=1)
+    tv_s, G_s = sharded_tv_and_subgrad(
+        make_mesh(z=1, t=1, devices=jax.devices()[:1]), cfg,
+        tuple(img.shape))(img)
+    tv_r, G_r = tv_and_subgrad(img, "hybrid", norm_type="huber",
+                               huber_delta=0.3)
+    assert float(tv_s) == pytest.approx(float(tv_r), rel=1e-12)
+    np.testing.assert_allclose(np.asarray(G_s), np.asarray(G_r),
+                               rtol=1e-10, atol=1e-12)
     with pytest.raises(ValueError, match="huber_delta"):
         TVConfig(norm="huber", huber_delta=0.0)
 
@@ -814,8 +770,7 @@ def test_huber_tv_norm_family():
 def test_tgv_loss_every_sampling():
     """``loss_every=k`` samples the objective after every k-th iteration:
     iterates identical to the continuous run, losses equal to every k-th
-    entry of the per-iteration series — on the jnp path AND the streaming
-    kernel path (the only way that path produces a loss series)."""
+    entry of the per-iteration series, in every axes mode."""
     import jax.numpy as jnp
 
     from pytv4d_tpu.solvers.tgv import tgv_denoise
@@ -825,16 +780,14 @@ def test_tgv_loss_every_sampling():
 
     for axes in ("2d", "3d", "4d"):
         full = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0, axes=axes)
-        for fused in (False, True):
-            res = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0,
-                              axes=axes, loss_every=5, fused=fused)
-            assert res.loss.shape == (4,)
-            np.testing.assert_allclose(np.asarray(res.x),
-                                       np.asarray(full.x),
-                                       rtol=1e-12, atol=1e-12)
-            np.testing.assert_allclose(np.asarray(res.loss),
-                                       np.asarray(full.loss)[4::5],
-                                       rtol=1e-10)
+        res = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0,
+                          axes=axes, loss_every=5)
+        assert res.loss.shape == (4,)
+        np.testing.assert_allclose(np.asarray(res.x), np.asarray(full.x),
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(np.asarray(res.loss),
+                                   np.asarray(full.loss)[4::5],
+                                   rtol=1e-10)
 
     with pytest.raises(ValueError, match="divisor"):
         tgv_denoise(x, n_iter=20, loss_every=3)
@@ -842,8 +795,7 @@ def test_tgv_loss_every_sampling():
 
 def test_tgv_state_resume_matches_continuous():
     """result.state resumes exactly: two 10-iteration chunks equal one
-    20-iteration run on every path (jnp scan; resident first chunk then
-    jnp; streaming kernel chunks)."""
+    20-iteration run, with and without the loss series."""
     import jax.numpy as jnp
 
     from pytv4d_tpu.solvers.tgv import tgv_denoise
@@ -862,21 +814,13 @@ def test_tgv_state_resume_matches_continuous():
             np.concatenate([a.loss, b.loss]), np.asarray(full.loss),
             rtol=1e-10)
 
-    # resident (interpreter) first chunk -> jnp resume
-    a = tgv_denoise(x, n_iter=10, alpha1=2.0, alpha0=4.0, fused=True)
-    b = tgv_denoise(x, n_iter=10, alpha1=2.0, alpha0=4.0, state=a.state,
-                    fused=False)
-    full = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0, fused=False)
-    np.testing.assert_allclose(np.asarray(b.x), np.asarray(full.x),
-                               rtol=1e-12, atol=1e-12)
-
-    # streaming-kernel chunks
+    # loss-free chunks
     full = tgv_denoise(x, n_iter=20, alpha1=2.0, alpha0=4.0, axes="4d",
-                       compute_loss=False, fused=True)
+                       compute_loss=False)
     a = tgv_denoise(x, n_iter=10, alpha1=2.0, alpha0=4.0, axes="4d",
-                    compute_loss=False, fused=True)
+                    compute_loss=False)
     b = tgv_denoise(x, n_iter=10, alpha1=2.0, alpha0=4.0, axes="4d",
-                    compute_loss=False, fused=True, state=a.state)
+                    compute_loss=False, state=a.state)
     np.testing.assert_allclose(np.asarray(b.x), np.asarray(full.x),
                                rtol=1e-12, atol=1e-12)
 
@@ -927,9 +871,9 @@ def test_tgv_checkpoint_roundtrip(tmp_path):
 
 
 def test_tgv_norm_family():
-    """Aniso (L1,1) and Huber-smoothed TGV on every path: kernel parity
-    with the jnp scan at fp round-off, monotone-ish loss, and Huber->iso as
-    delta->0 on the denoising objective."""
+    """Aniso (L1,1) and Huber-smoothed TGV in the 2d and coupled 4d modes:
+    finite, decreasing loss, and Huber->iso as delta->0 on the denoising
+    objective."""
     import jax.numpy as jnp
 
     from pytv4d_tpu.solvers.tgv import tgv_denoise
@@ -942,19 +886,10 @@ def test_tgv_norm_family():
                           **kw)
         loss = np.asarray(ref.loss)
         assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
-        # resident kernel parity (interpreter)
-        fus = tgv_denoise(x, n_iter=20, alpha1=1.0, alpha0=2.0, norm=norm,
-                          fused=True, **kw)
-        np.testing.assert_allclose(np.asarray(fus.x), np.asarray(ref.x),
-                                   rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(fus.loss), loss, rtol=1e-10)
-        # streaming kernel parity (4d coupled)
         r4 = tgv_denoise(x, n_iter=12, alpha1=1.0, alpha0=2.0, axes="4d",
-                         norm=norm, compute_loss=False, fused=False, **kw)
-        f4 = tgv_denoise(x, n_iter=12, alpha1=1.0, alpha0=2.0, axes="4d",
-                         norm=norm, compute_loss=False, fused=True, **kw)
-        np.testing.assert_allclose(np.asarray(f4.x), np.asarray(r4.x),
-                                   rtol=1e-12, atol=1e-12)
+                         norm=norm, **kw)
+        loss4 = np.asarray(r4.loss)
+        assert loss4[-1] < loss4[0] and np.all(np.isfinite(loss4))
 
     # tiny delta ~ iso
     iso = tgv_denoise(x, n_iter=60, alpha1=1.0, alpha0=2.0)
@@ -1149,7 +1084,7 @@ def test_tgv_inverse_differentiable_in_alpha():
 
 
 def test_run_until_converged_advice_fixes(noisy_small):
-    """ADVICE r2 regressions: (a) criterion='gap' reads reg baked into a
+    """Regressions: (a) criterion='gap' reads reg baked into a
     functools.partial solver instead of silently defaulting; (b) a missing
     reg raises instead of certifying the wrong objective; (c) chunk=1 does
     not trivially report loss convergence via loss[0] == loss[-1]."""
@@ -1180,7 +1115,7 @@ def test_run_until_converged_advice_fixes(noisy_small):
 
 
 def test_fidelity_weight_array_rejected(noisy_small):
-    """ADVICE r2: an array fidelity_weight on the denoising solvers raises
+    """an array fidelity_weight on the denoising solvers raises
     a clear ValueError (it is static under jit) instead of an opaque
     unhashable-type error, and points at the inverse solvers."""
     from pytv4d_tpu.solvers import chambolle_pock_precond
@@ -1197,7 +1132,7 @@ def test_fidelity_weight_array_rejected(noisy_small):
 
 
 def test_fidelity_row_precond_relative_floor():
-    """ADVICE r2: the zero-row floor in fidelity_row_precond is relative to
+    """the zero-row floor in fidelity_row_precond is relative to
     the row-sum scale — a uniformly small-scaled operator keeps its live
     rows' exact reciprocal row sums instead of being capped at 1e3."""
     from pytv4d_tpu.solvers.inverse import fidelity_row_precond
@@ -1210,7 +1145,7 @@ def test_fidelity_row_precond_relative_floor():
 
 
 def test_pd_gap_inverse_bounds_suboptimality():
-    """The inverse-problem gap certificate (VERDICT r2 item 4): on a TV-CT
+    """The inverse-problem gap certificate: on a TV-CT
     problem, pd_gap_inverse at n iterations bounds the TRUE suboptimality
     measured against a 10x-iteration reference solve, shrinks with n, and
     both prior-set forms (box / norm ball) are valid."""
@@ -1369,13 +1304,13 @@ def test_tgv_gap_inverse_bounds_suboptimality():
 @pytest.mark.full
 def test_production_scale_cp_parity():
     """BASELINE.md's north-star loss-parity bar at the largest
-    reference-runnable scale (VERDICT r3 item 5): the reference CPU CP
+    reference-runnable scale: the reference CPU CP
     recipe was executed in f64 at (16, 4, 512, 512) with time coupling
     (tools/make_golden_solver_production.py, ~12 min of numpy) and its
     50-iteration loss trajectory recorded.  Our jnp path must reproduce
-    it to 1e-9 in f64 and 1e-4 relative in f32 (the TPU storage dtype);
-    the on-chip fused-path spot check lives in
-    tools/bench_golden_production.py (BENCH_LOCAL.jsonl)."""
+    it to 1e-9 in f64 and 1e-4 relative in f32 (the device storage
+    dtype); ``chip_smoke.py`` checks the same bar on the GPU, in f32 and
+    with bf16 duals."""
     import os
 
     g = np.load(os.path.join(os.path.dirname(__file__), "golden",
@@ -1392,12 +1327,9 @@ def test_production_scale_cp_parity():
     probe = np.asarray(res.x)[::4, :, ::16, ::16]
     np.testing.assert_allclose(probe, g["x_probe"], rtol=1e-9, atol=1e-9)
 
-    # fused=False: on forced-CPU CI the f32 fused path would run the
-    # Pallas INTERPRETER at 16.8M voxels; the fused-kernel parity at this
-    # scale is asserted on-chip (tools/bench_golden_production.py)
     res32 = chambolle_pock(noisy.astype(np.float32), n_iter=n_it,
                            reg=float(g["reg"]), cfg=cfg,
-                           tau=float(g["tau"]), fused=False)
+                           tau=float(g["tau"]))
     rel = np.abs(np.asarray(res32.loss, np.float64) - g["losses"]) \
         / g["losses"]
     assert np.max(rel) < 1e-4, np.max(rel)

@@ -21,7 +21,7 @@ def test_cross_implementation(scheme):
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
-@pytest.mark.parametrize("backend", ["cpu", "tpu"])
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
 def test_2d_to_3d(scheme, backend):
     ptv_testing.test_2D_to_3D(scheme, backend)
 

@@ -1,4 +1,4 @@
-"""Production-scale reference-parity golden (VERDICT r3 item 5): run the
+"""Production-scale reference-parity golden: run the
 REFERENCE CPU Chambolle-Pock denoising recipe (README.md:139-158, with
 the keepdims fix the 4D case requires — SURVEY.md 2.4.6) in f64 at the
 largest reference-runnable scale here, (16, 4, 512, 512) with time
